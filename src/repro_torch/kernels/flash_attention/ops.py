@@ -1,0 +1,170 @@
+"""Public wrapper of the flash attention kernel.
+
+The counterpart of ``repro.kernels.flash_attention.ops``.  The model's
+layout is (B, S, H, D); the kernel indexes (B, H, S, D) through each
+tensor's strides, so the model's tensors reach it as transposed views and
+its output is written straight into a (B, S, H, D) buffer.  On CUDA tensors
+:func:`flash_attention` launches the hand-written Hopper kernel
+(``csrc/flash_attention_fwd.cu``) on the current stream and counts the
+launch in :data:`kernel_launches`; on CPU tensors it runs the plain version
+(:mod:`.ref`) and counts :data:`plain_calls`.  There is no fallback between
+the two: a CUDA call the kernel does not take raises.
+
+The backward pass recomputes the plain version under autograd, as the
+reference's ``_fa_bwd`` does: the forward is exact, so its gradients are
+exact too.  A backward kernel is later work.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from .. import _build
+from . import ref as _ref
+
+#: launches of the CUDA kernel in this process (one per call on the card)
+kernel_launches = 0
+#: calls answered by the plain version (CPU tensors)
+plain_calls = 0
+_count_lock = threading.Lock()
+
+HEAD_DIMS = (32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_counts() -> None:
+    global kernel_launches, plain_calls
+    with _count_lock:
+        kernel_launches = 0
+        plain_calls = 0
+
+
+def _count(kernel: bool) -> None:
+    global kernel_launches, plain_calls
+    with _count_lock:
+        if kernel:
+            kernel_launches += 1
+        else:
+            plain_calls += 1
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_fwd")
+    if lib.flash_attention_fwd.argtypes is None:
+        lib.flash_attention_fwd.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_int, ctypes.c_void_p])
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel.  q: (B, H, S, D); k/v: (B, KH, S, D), CUDA
+    tensors of one dtype (float32 or bfloat16), any strides with a
+    unit-stride last axis.  Writes ``out`` (a new contiguous tensor if None,
+    else q's shape, dtype and device with a unit-stride last axis) and
+    returns it."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_fwd: q, k, v must be on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention_fwd: q, k, v must share a dtype of "
+                        f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention_fwd: bad shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or H % KH:
+        raise ValueError(f"flash_attention_fwd: k/v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    elif (out.shape != q.shape or out.dtype != q.dtype
+          or out.device != q.device):
+        raise ValueError(f"flash_attention_fwd: out {tuple(out.shape)} "
+                         f"{out.dtype} {out.device} does not match q")
+    if any(t.stride(3) != 1 for t in (q, k, v, out)):
+        raise ValueError("flash_attention_fwd: the head-dim axis of q, k, v "
+                         "and out must have stride 1")
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            B, H, KH, S, D, float(scale), int(bool(causal)),
+            int(window) if window is not None else 0,
+            float(softcap) if softcap is not None else 0.0,
+            _DTYPES[q.dtype], stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention_fwd launch failed ({rc}): {msg}")
+    _count(kernel=True)
+    return out
+
+
+def _forward(q, k, v, scale, causal, window, softcap):
+    """(B,S,H,D) in and out: the kernel on CUDA, the plain version on CPU."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q.is_cuda:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        flash_attention_fwd(qt, kt, vt, scale=scale, causal=causal,
+                            window=window, softcap=softcap,
+                            out=out.transpose(1, 2))
+        return out
+    if q.device.type == "cpu":
+        out = _ref.attention_ref(qt, kt, vt, scale=scale, causal=causal,
+                                 window=window, softcap=softcap)
+        _count(kernel=False)
+        return out.transpose(1, 2)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (scale, causal, window, softcap)
+        return _forward(q, k, v, scale, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        scale, causal, window, softcap = ctx.cfg
+        with torch.enable_grad():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            out = attention_ref(qq, kk, vv, scale=scale, causal=causal,
+                                window=window, softcap=softcap)
+            gq, gk, gv = torch.autograd.grad(out, (qq, kk, vv), g)
+        return gq, gk, gv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, scale: float, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None):
+    """q: (B, S, H, D); k/v: (B, S, KH, D) -> (B, S, H, D)."""
+    return _FlashAttention.apply(q, k, v, scale, causal, window, softcap)
+
+
+def attention_ref(q, k, v, *, scale, causal=True, window=None, softcap=None):
+    """(B,S,H,D)-layout plain version."""
+    out = _ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), scale=scale, causal=causal,
+                             window=window, softcap=softcap)
+    return out.transpose(1, 2)

@@ -1,0 +1,14 @@
+"""Model zoo of the PyTorch port: decoder-only transformers (dense
+attention families in this slice)."""
+from ..configs.config import MLACfg, ModelCfg, MoECfg, RGLRUCfg, SSMCfg
+from .lm import TransformerLM, build_segments
+
+
+def build_model(cfg: ModelCfg) -> TransformerLM:
+    if cfg.encdec:
+        raise NotImplementedError("encoder-decoder: later slice of the port")
+    return TransformerLM(cfg)
+
+
+__all__ = ["ModelCfg", "MoECfg", "MLACfg", "SSMCfg", "RGLRUCfg",
+           "TransformerLM", "build_model", "build_segments"]

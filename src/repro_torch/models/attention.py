@@ -1,0 +1,166 @@
+"""GQA attention mixer (global and sliding-window) for the PyTorch port.
+
+The counterpart of ``repro.models.attention``.  Caches carry an explicit
+per-slot ``pos`` tensor, so global caches and ring-buffered sliding-window
+caches share one masking rule, as in the reference.
+
+Cache writes are in place (``index_put_`` on the slot rows), where the
+reference builds a new cache array: the returned cache is the one passed in.
+
+Which attention runs:
+
+* no cache (training, ``loss``): causal attention through
+  :func:`repro_torch.kernels.flash_attention.ops.flash_attention` when
+  ``cfg.attn_impl == "kernel"``, else :func:`ref_attention`;
+* a fresh cache (``fresh_cache=True``: every slot empty and the prompt at
+  positions ``0..S-1``, which is how prefill runs): attending over the cache
+  is exactly causal, sliding-window self-attention over the prompt, so with
+  ``attn_impl == "kernel"`` it goes through the flash kernel while K/V are
+  written into the cache;
+* otherwise (decode): :func:`ref_attention` over the cache.
+
+A prompt longer than the cache (S > L) raises ValueError.  The reference
+then keeps only the last L tokens and earlier queries find every key
+masked, so its prefill output is wrong; the port refuses rather than match
+or silently differ from it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .common import P, rms_norm, rotary, softcap
+from ..configs.config import ModelCfg
+from ..kernels.flash_attention import ops as flash_ops
+
+NEG_INF = -2.0e38
+
+
+def ref_attention(q, k, v, *, scale, q_pos, k_pos, window: Optional[int],
+                  cap: Optional[float], causal: bool = True):
+    """Grouped-query attention, fp32 softmax.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KH, D); q_pos: (B, Sq); k_pos: (B, Sk).
+    Masks: causal (k_pos <= q_pos), optional sliding window, and empty
+    cache slots (k_pos < 0)."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    g = H // KH
+    qr = q.reshape(B, Sq, KH, g, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qr.float(), k.float()) * scale
+    logits = softcap(logits, cap)
+    mask = k_pos[:, None, :] >= 0
+    if causal:
+        mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask = mask & ((q_pos[:, :, None] - k_pos[:, None, :]) < window)
+    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def gqa_specs(cfg: ModelCfg) -> Dict[str, P]:
+    d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sp = {
+        "wq": P((d, H, hd), ("embed", "heads", "head_dim")),
+        "wk": P((d, KH, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": P((d, KH, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": P((H, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.bias:
+        sp["bq"] = P((H, hd), ("heads", "head_dim"), "zeros")
+        sp["bk"] = P((KH, hd), ("kv_heads", "head_dim"), "zeros")
+        sp["bv"] = P((KH, hd), ("kv_heads", "head_dim"), "zeros")
+        sp["bo"] = P((d,), ("embed",), "zeros")
+    if cfg.qk_norm:
+        sp["q_norm"] = P((hd,), ("head_dim",), "zeros")
+        sp["k_norm"] = P((hd,), ("head_dim",), "zeros")
+    return sp
+
+
+def gqa_apply(p, x, *, cfg: ModelCfg, kind: str, positions,
+              cache: Optional[dict] = None, fresh_cache: bool = False
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """kind: 'attn' (global) or 'local' (window=cfg.window).
+
+    positions: (B, S) int absolute positions of x's tokens.
+    cache: {'k','v': (B, L, KH, D), 'pos': (B, L)} or None (training).
+    fresh_cache: the cache is empty and positions are ``0..S-1``."""
+    B, S, _ = x.shape
+    window = cfg.window if kind == "local" else None
+    theta = cfg.local_rope_theta if kind == "local" else cfg.rope_theta
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], plus_one=True)
+        k = rms_norm(k, p["k_norm"], plus_one=True)
+    if cfg.rope:
+        q = rotary(q, positions, theta=theta, fraction=cfg.rope_fraction)
+        k = rotary(k, positions, theta=theta, fraction=cfg.rope_fraction)
+    scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.hd ** -0.5
+
+    if cache is None:
+        out = _train_attention(q, k, v, scale=scale, positions=positions,
+                               window=window, cfg=cfg, causal=kind != "enc")
+    else:
+        L = cache["k"].shape[1]
+        if S > L:
+            raise ValueError(
+                f"{S} tokens do not fit a cache of length {L}: only the last "
+                f"{L} could be kept and earlier queries would lose their keys")
+        # ring-buffer slot for window caches; append slot for global caches
+        slot = (positions % L).long()                          # (B, S)
+        bidx = torch.arange(B, device=x.device)[:, None]
+        cache["k"][bidx, slot] = k.to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v.to(cache["v"].dtype)
+        cache["pos"][bidx, slot] = positions.to(cache["pos"].dtype)
+        if fresh_cache and cfg.attn_impl == "kernel":
+            out = flash_ops.flash_attention(q, k, v, scale=scale, causal=True,
+                                            window=window,
+                                            softcap=cfg.attn_softcap)
+        else:
+            out = ref_attention(q, cache["k"], cache["v"], scale=scale,
+                                q_pos=positions, k_pos=cache["pos"],
+                                window=window, cap=cfg.attn_softcap)
+
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if cfg.bias:
+        out = out + p["bo"]
+    return out, cache
+
+
+def _train_attention(q, k, v, *, scale, positions, window, cfg: ModelCfg,
+                     causal: bool = True):
+    if cfg.attn_impl == "kernel" and causal:
+        return flash_ops.flash_attention(q, k, v, scale=scale, causal=True,
+                                         window=window,
+                                         softcap=cfg.attn_softcap)
+    return ref_attention(q, k, v, scale=scale, q_pos=positions,
+                         k_pos=positions, window=window,
+                         cap=cfg.attn_softcap, causal=causal)
+
+
+def gqa_cache_spec(cfg: ModelCfg, kind: str, batch: int,
+                   max_len: int) -> Dict[str, P]:
+    L = min(cfg.window, max_len) if kind == "local" else max_len
+    KH, hd = cfg.n_kv_heads, cfg.hd
+    return {
+        "k": P((batch, L, KH, hd), ("batch", "cache", "kv_heads", "head_dim"),
+               "zeros"),
+        "v": P((batch, L, KH, hd), ("batch", "cache", "kv_heads", "head_dim"),
+               "zeros"),
+        "pos": P((batch, L), ("batch", "cache"), "zeros", dtype=torch.int32),
+    }
+
+
+def init_cache_pos(cache: dict) -> dict:
+    """Empty slots are marked pos = -1 (masked out)."""
+    out = dict(cache)
+    out["pos"] = torch.full_like(cache["pos"], -1)
+    return out

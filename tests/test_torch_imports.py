@@ -1,0 +1,56 @@
+"""The port stands alone: importing any of it loads neither jax nor the
+JAX package, and its entry points never carry on on the CPU unasked."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ARCHS, reduce_cfg            # noqa: E402
+from repro_torch.serve import (LoadSpec, SequentialEngine,   # noqa: E402
+                               ServeEngine, run_sequential, run_serve,
+                               serve_program)
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _CHECK], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 30      # configs, runtime, models, kernels, serve
+
+
+CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
+ENTRY_POINTS = {
+    "ServeEngine": lambda: ServeEngine(CFG, slots=1),
+    "SequentialEngine": lambda: SequentialEngine(CFG),
+    "serve_program": lambda: serve_program("gemma3-1b"),
+    "run_serve": lambda: run_serve(load=LoadSpec(requests=1)),
+    "run_sequential": lambda: run_sequential(CFG, []),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_gpu_raises(name, monkeypatch):
+    """device=None means the card: without one, raise, never fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
