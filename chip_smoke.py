@@ -8,24 +8,41 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure:
+raise on failure.  Two paths are driven, gemma3-1b (flash attention) and
+mamba2-370m (the SSD scan), each at full width and depth:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
-2. build: every CUDA kernel from the sources in the checkout;
-3. each kernel against its plain PyTorch version on the card, on the
+2. build: every CUDA kernel from the sources in the checkout, all ``nvcc``
+   at once, with each kernel's registers and spills;
+3. the flash kernel against its plain PyTorch version on the card, on the
    reference's test cases, ragged tails and the serving path's shapes,
    with CUDA-event times of the kernel, the plain version and one PyTorch
    library call computing the same function (a yardstick only);
-4. full-width, full-depth gemma3-1b with seeded random weights: prefill
-   through the kernel against prefill through plain attention, float32
-   (gated) and bfloat16 (reported);
-5. the main path: event-driven serving of gemma3-1b in bf16 through
-   ``run_serve`` on the port's EDAT runtime, with the kernel's launch
-   count read around it;
-6. float32 serving against the sequential baseline, token for token;
-7. where serving time goes: one bf16 prefill and one 4-slot decode step,
-   the device's kernel time (``torch.profiler``) against the host clock.
+4. gemma3-1b with seeded random weights: prefill through the kernel
+   against prefill through plain attention, float32 (gated) and bfloat16
+   (reported);
+5. gemma3-1b's main path: event-driven serving in bf16 through
+   ``run_serve`` on the port's EDAT runtime, with every kernel's launch
+   count set to 0 just before it and read just after;
+6. float32 serving of gemma3-1b against the sequential baseline, token for
+   token;
+7. where gemma3-1b's serving time goes: one bf16 prefill and one 4-slot
+   decode step, the device's kernel time (``torch.profiler``) against the
+   host clock;
+8. the SSD kernel against its plain version on the card: the reference's
+   test cases, ragged tails, a nonzero initial state (final state compared
+   too) and the serving path's shapes, timed as in phase 3 (no single
+   PyTorch call computes this function, so it has no library time); the
+   same check must reject faults planted in the plain scan;
+9. mamba2-370m: prefill through the SSD kernel against prefill through the
+   plain scan, float32 (gated, with the reference's init and again with
+   Mamba-2's init of a_log and dt_bias) and bfloat16 (reported); the
+   float32 gate must reject faults planted in the plain scan;
+10. mamba2-370m's main path: event-driven serving in bf16, counted as in
+    phase 5;
+11. float32 serving of mamba2-370m against the sequential baseline;
+12. where mamba2-370m's serving time goes, as in phase 7.
 
 It prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
 its last line; ``--json PATH`` also writes every number to PATH.
@@ -72,10 +89,58 @@ PATH_WINDOWS = (512, None)
 TIMED = (511, 512)        # the shape whose times stand in the kernels line
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
-ARCH = "gemma3-1b"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_fwd.cu"
+SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:68"
+# (B, T, H, G, N, P, chunk, dtype, init_state): the reference's SSD_CASES
+# (tests/test_kernels.py), ragged tails and nonzero initial states the TPU
+# kernel does not take
+SSD_CASES = [
+    (2, 256, 4, 1, 32, 32, 64, "float32", False),
+    (2, 256, 8, 2, 64, 64, 128, "float32", False),
+    (2, 128, 2, 2, 16, 64, 32, "float32", False),
+    (2, 256, 4, 1, 128, 64, 128, "bfloat16", False),
+    (2, 100, 4, 2, 32, 32, 128, "float32", True),
+    (2, 300, 4, 2, 32, 32, 128, "float32", True),
+    (2, 300, 8, 1, 128, 64, 128, "bfloat16", True),
+]
+# the serving path's shapes: mamba2-370m prefill, B=1, 32 heads of 64, one
+# group, state 128, chunk 128, bf16 x/b/c as views of the conv output, and
+# an initial state (prefill passes the cache's, zeros on a fresh cache;
+# here a random one)
+SSD_PATH_T = (100, 256, 384, 511)
+SSD_TIMED_T = 511
+# |kernel - plain| <= SSD_TOL * max|plain| in every case, bf16 inputs too:
+# both read the same values (bf16 widens to float32 exactly) and both
+# compute in float32, so no bf16 rounding separates them; float32 sums of a
+# chunk of products cancel in places, so their rounding scales with the
+# output's largest magnitude
+SSD_TOL = 1e-4
+
+GEMMA, MAMBA = "gemma3-1b", "mamba2-370m"
+PATH_KERNEL = {GEMMA: "flash_attention_fwd", MAMBA: "ssd_fwd"}  # prefill's
 MAX_LEN = 512             # = gemma3-1b's window: no prompt outgrows a cache
 PREFILL_S = (100, 256, 511)
 LOGIT_TOL = 1e-3          # float32 kernel path vs plain path, last logits
+FLOOR_FACTOR = 4          # ... or this many plain-path noise floors (SSD)
+# faults planted in the plain SSD scan, run chunk by chunk: the c.S_prev
+# term between chunks dropped, the state carried between chunks in bf16,
+# x/b/c read as bf16; and the control, the same chunk-by-chunk run with no
+# fault.  Each check must pass the control and reject the faults named
+# here: phase 8's kernel check (bf16 inputs already) the first two; phase
+# 9's float32 logit gate bf16 inputs, and with Mamba-2's init (below) the
+# dropped term too.  The reference's init forgets within a few steps, so
+# no logit gate sees a fault between chunks there; a bf16 state moves the
+# logits too little for one at either init.  Phase 9 reports the rest.
+SSD_CONTROL = "chunkwise"
+SSD_FAULTS = ("no_inter_chunk", "bf16_state", "bf16_inputs")
+KERNEL_FAULTS = ("no_inter_chunk", "bf16_state")
+LOGIT_FAULTS = {"seeded": ("bf16_inputs",),
+                "mamba2_init": ("no_inter_chunk", "bf16_inputs")}
+# phase 8's long-memory case: dt = softplus(randn + DT_SHIFT), ~0.02, so
+# the state carries across chunks; phase 9's second float32 weight set
+# draws a_log and dt_bias as Mamba-2's published init does (A uniform in
+# [1, 16], dt log-uniform in [1e-3, 1e-1]) for the same reason
+DT_SHIFT = -4.0
 NEAR_TIE = 1e-3           # a differing token is a near-tie below this gap
 
 
@@ -134,13 +199,40 @@ def phase_env(out):
     out["cuda"] = torch.version.cuda
 
 
+def _ptxas_summary(text):
+    """(kernel, registers, spill bytes) per compiled entry of a build log."""
+    import re
+    rows, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append({"entry": name, "registers": int(m.group(1)),
+                         "spill_store_bytes": spills})
+            name = None
+    return rows
+
+
 def phase_build(out):
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import ops as ssd_ops
     secs = _build.build_all()
     for name, text in _build.build_log.items():
         log(f"-- nvcc {name}.cu\n{text.strip()}")
     log(f"build: {secs:.1f} s for {list(_build.SOURCES)}")
+    ptxas = {n: _ptxas_summary(t) for n, t in _build.build_log.items()}
+    smem = ssd_ops.smem_bytes(128, 64, 128)
+    log("ssd_fwd ptxas " + json.dumps({
+        "kernels": ptxas.get("ssd_fwd"),
+        "dynamic_smem_bytes_at_N128_P64_chunk128": smem}))
     out["build_s"] = secs
+    out["ptxas"] = ptxas
+    out["ssd_smem_bytes"] = smem
 
 
 def _fa_inputs(S, H, KH, D, dtype, B, seed, model_layout):
@@ -212,11 +304,20 @@ def phase_kernels(out):
     out["flash_attention_cases"] = rows
 
 
-def _full_model(dtype, attn_impl, params=None):
+def _all_ops():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd
+    return {"flash_attention_fwd": fa, "ssd_fwd": ssd}
+
+
+def _full_model(arch, dtype, attn_impl, params=None, chunk=None):
+    import dataclasses
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
-    cfg = ARCHS[ARCH].cfg.replace(dtype=dtype, attn_impl=attn_impl)
+    cfg = ARCHS[arch].cfg.replace(dtype=dtype, attn_impl=attn_impl)
+    if chunk is not None:
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
     model = build_model(cfg)
     if params is None:
         model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -233,14 +334,34 @@ def _prefill(model, tokens):
     return logits[0, -1].float()
 
 
-def phase_model(out):
+def phase_model(out, arch):
+    """Full-width, full-depth prefill through the kernel against prefill
+    through the plain version, same weights: float32 gated, bf16 shown.
+
+    For the SSD path the plain version also runs at half the chunk size,
+    an exact reformulation of the same scan: the two plain runs differ by
+    float32 rounding alone, amplified through 48 layers, and that
+    difference (``floor``) is this model's noise floor.  The float32 gate
+    is then the larger of LOGIT_TOL and FLOOR_FACTOR floors; planted in the
+    plain path, the control must pass it and each of LOGIT_FAULTS fail
+    it."""
     import torch
-    from repro_torch.kernels.flash_attention import ops
+    ops = _all_ops()[PATH_KERNEL[arch]]
     res = {}
-    for dtype in ("float32", "bfloat16"):
-        kmodel = _full_model(dtype, "kernel")
+    runs = [("float32", "seeded"), ("bfloat16", "seeded")]
+    if arch == MAMBA:
+        runs.append(("float32", "mamba2_init"))
+    for dtype, weights in runs:
+        kmodel = _full_model(arch, dtype, "kernel")
+        if weights == "mamba2_init":
+            _mamba2_init(kmodel.params.to_dict())
         n_layers = kmodel.cfg.n_layers
-        rmodel = _full_model(dtype, "ref", params=kmodel.params.to_dict())
+        rmodel = _full_model(arch, dtype, "ref",
+                             params=kmodel.params.to_dict())
+        cmodel = (_full_model(arch, dtype, "ref",
+                              params=kmodel.params.to_dict(),
+                              chunk=kmodel.cfg.ssm.chunk // 2)
+                  if arch == MAMBA and dtype == "float32" else None)
         g = torch.Generator(device="cuda").manual_seed(1)
         for S in PREFILL_S:
             toks = torch.randint(0, kmodel.cfg.vocab, (1, S), generator=g,
@@ -251,24 +372,115 @@ def phase_model(out):
             lr = _prefill(rmodel, toks)
             diff = float((lk - lr).abs().max())
             same = int(lk.argmax()) == int(lr.argmax())
+            floor = (float((_prefill(cmodel, toks) - lr).abs().max())
+                     if cmodel is not None else None)
+            gate = max(LOGIT_TOL, FLOOR_FACTOR * (floor or 0.0))
+            faults = ({f: _planted_fault(rmodel, toks, lr, f, gate)
+                       for f in (SSD_CONTROL,) + SSD_FAULTS
+                       if f == "bf16_inputs" or S > rmodel.cfg.ssm.chunk}
+                      if cmodel is not None else {})
+            for f, r in faults.items():
+                r["gated"] = f == SSD_CONTROL or f in LOGIT_FAULTS[weights]
             t_k = _host_ms(lambda: _prefill(kmodel, toks))
             t_r = _host_ms(lambda: _prefill(rmodel, toks))
-            row = {"dtype": dtype, "S": S, "max_logit_diff": diff,
-                   "same_first_token": same, "kernel_launches": launched,
+            row = {"arch": arch, "dtype": dtype, "weights": weights, "S": S,
+                   "max_logit_diff": diff, "same_first_token": same,
+                   "max_abs_logit": float(lr.abs().max()),
+                   "plain_floor": floor, "gate": gate,
+                   "planted_faults": faults,
+                   "kernel_launches": launched,
                    "prefill_ms_kernel_path": t_k,
                    "prefill_ms_plain_path": t_r}
             log("model " + json.dumps(row))
-            res[f"{dtype}_S{S}"] = row
+            res[f"{dtype}_S{S}_{weights}"] = row
             if not torch.isfinite(lk).all():
                 raise AssertionError(f"non-finite logits: {row}")
             if launched != n_layers:
                 raise AssertionError(f"prefill launched the kernel "
                                      f"{launched} times, not {n_layers}")
-            if dtype == "float32" and (diff > LOGIT_TOL or not same):
+            if dtype == "float32" and (diff > gate or not same):
                 raise AssertionError(f"float32 kernel path disagrees: {row}")
-        del kmodel, rmodel
+            missed = [f for f, r in faults.items() if r["gated"]
+                      and r["rejected"] == (f == SSD_CONTROL)]
+            if missed:
+                raise AssertionError(f"the float32 gate does not tell the "
+                                     f"control from planted faults: "
+                                     f"{missed}: {row}")
+        del kmodel, rmodel, cmodel
         torch.cuda.empty_cache()
-    out["model"] = res
+    out[f"model_{arch}"] = res
+
+
+def _mamba2_init(params):
+    """Overwrite, in place, every layer's a_log and dt_bias as Mamba-2's
+    published init draws them (seeded): A uniform in [1, 16], dt
+    log-uniform in [1e-3, 1e-1] and dt_bias its inverse softplus."""
+    import math
+    import torch
+    g = torch.Generator().manual_seed(2)
+
+    def walk(t):
+        if not isinstance(t, dict):
+            return
+        if "a_log" in t and "dt_bias" in t:
+            a, d = t["a_log"], t["dt_bias"]
+            A = 1 + 15 * torch.rand(a.shape, generator=g)
+            dt = torch.exp(math.log(1e-3) + math.log(100) * torch.rand(
+                d.shape, generator=g))
+            with torch.no_grad():
+                a.copy_(torch.log(A))
+                d.copy_(dt + torch.log(-torch.expm1(-dt)))
+        for v in t.values():
+            walk(v)
+    walk(params)
+
+
+def _faulty_ssd(fault, xs, dt, a_log, b, c, *, chunk, init_state=None):
+    """The plain SSD scan, chunk by chunk, with one planted fault (see
+    SSD_FAULTS), or none (SSD_CONTROL): (y float32, final state)."""
+    import torch
+    from repro_torch.kernels.ssd.ref import ssd_padded_reference
+    if fault == "bf16_inputs":
+        return ssd_padded_reference(xs.bfloat16(), dt, a_log, b.bfloat16(),
+                                    c.bfloat16(), chunk=chunk,
+                                    init_state=init_state)
+    s, ys = init_state, []
+    for t0 in range(0, xs.shape[1], chunk):
+        args = [a[:, t0:t0 + chunk] for a in (xs, dt)] + [a_log] + \
+            [a[:, t0:t0 + chunk] for a in (b, c)]
+        if fault == "bf16_state" and s is not None:
+            s = s.bfloat16().float()
+        y, s_next = ssd_padded_reference(*args, chunk=chunk, init_state=s)
+        if fault == "no_inter_chunk":
+            y, _ = ssd_padded_reference(*args, chunk=chunk)
+        ys.append(y)
+        s = s_next
+    return torch.cat(ys, dim=1), s
+
+
+def _faulty_scan(fault):
+    """``models.mamba2._scan`` on the plain path with ``fault`` planted."""
+    def scan(cfg, xs, dt, a_log, b, c, init_state=None):
+        return _faulty_ssd(fault, xs, dt, a_log, b, c, chunk=cfg.ssm.chunk,
+                           init_state=init_state)
+    return scan
+
+
+def _planted_fault(rmodel, toks, lr, fault, gate):
+    """Prefill of the plain model with ``fault`` planted in its scan: its
+    last logits' distance from the sound plain path's, and whether the
+    float32 gate rejects it."""
+    from repro_torch.models import mamba2
+    sound = mamba2._scan
+    mamba2._scan = _faulty_scan(fault)
+    try:
+        lf = _prefill(rmodel, toks)
+    finally:
+        mamba2._scan = sound
+    diff = float((lf - lr).abs().max())
+    same = int(lf.argmax()) == int(lr.argmax())
+    return {"max_logit_diff": diff, "same_first_token": same,
+            "gates": diff / gate, "rejected": diff > gate or not same}
 
 
 def _host_ms(fn, iters=3):
@@ -289,24 +501,30 @@ def _load():
                     max_new_lo=16, max_new_hi=32)
 
 
-def phase_serve(out):
+def phase_serve(out, arch):
+    """The main path of ``arch``: every kernel's counts are set to 0 just
+    before the serving run and read just after it."""
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.serve import run_serve
     load = _load()
-    n_layers = ARCHS[ARCH].cfg.n_layers
+    cfg = ARCHS[arch].cfg
+    name = PATH_KERNEL[arch]
     prefills = len(set(load.prompt_lens)) + load.requests
+    all_ops = _all_ops()
     torch.cuda.synchronize()
-    ops.reset_counts()                     # the main path's counts only
-    res = run_serve(arch=ARCH, reduced=False, clients=2, slots=4,
+    for ops in all_ops.values():
+        ops.reset_counts()                 # the main path's counts only
+    res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                     max_len=MAX_LEN, load=load, transport="inproc",
                     device="cuda")
     torch.cuda.synchronize()
-    launches, plain = ops.kernel_launches, ops.plain_calls
+    launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
+    plain = {k: ops.plain_calls for k, ops in all_ops.items()}
     r, summary = res["result"], res["summary"]
     log("serve " + json.dumps({
-        "card": out.get("card"), "dtype": "bfloat16", **summary,
+        "arch": arch, "card": out.get("card"), "dtype": cfg.dtype,
+        "reading": "smoke, 8 requests", **summary,
         "steps": r["steps"], "tick_execs": r["tick_execs"],
         "prefills": r["prefills"], "kernel_launches": launches,
         "plain_calls": plain}))
@@ -315,19 +533,19 @@ def phase_serve(out):
         "slots_leaked == 0": r["slots_leaked"] == 0,
         "queue_left == 0": r["queue_left"] == 0,
         "tick_execs == steps": r["tick_execs"] == r["steps"],
-        f"launches == {n_layers * prefills}":
-            launches == n_layers * prefills,
-        "plain_calls == 0": plain == 0,
-        "tokens in vocab": all(0 <= t < ARCHS[ARCH].cfg.vocab
-                               for rec in r["records"]
+        f"{name} launches == {cfg.n_layers} x {prefills}":
+            launches[name] == cfg.n_layers * prefills,
+        "plain_calls == 0": not any(plain.values()),
+        "tokens in vocab": all(0 <= t < cfg.vocab for rec in r["records"]
                                for t in rec["tokens"]),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"serve checks failed: {failed}")
-    out["serve"] = {"summary": summary, "steps": r["steps"],
-                    "kernel_launches": launches, "plain_calls": plain}
-    out["main_path_launches"] = {"flash_attention_fwd": launches}
+    out[f"serve_{arch}"] = {"summary": summary, "steps": r["steps"],
+                            "kernel_launches": launches,
+                            "plain_calls": plain}
+    out.setdefault("main_path_launches", {})[name] = launches[name]
 
 
 def _top2_gap(cfg, prompt, tokens, step):
@@ -347,13 +565,13 @@ def _top2_gap(cfg, prompt, tokens, step):
     return float(top[0] - top[1])
 
 
-def phase_parity(out):
+def phase_parity(out, arch):
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
-    cfg = ARCHS[ARCH].cfg.replace(dtype="float32")
-    res = run_serve(arch=ARCH, reduced=False, clients=2, slots=4,
+    cfg = ARCHS[arch].cfg.replace(dtype="float32")
+    res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                     max_len=MAX_LEN, load=load, device="cuda",
                     dtype="float32")
     got = {r["id"]: r["tokens"] for r in res["result"]["records"]}
@@ -375,14 +593,14 @@ def phase_parity(out):
                if step < min(len(a), len(b)) else float("inf"))
         diffs.append({"id": rid, "step": step, "top2_gap": gap})
         torch.cuda.empty_cache()
-    log("parity " + json.dumps({"requests": len(want),
+    log("parity " + json.dumps({"arch": arch, "requests": len(want),
                                 "identical": len(want) - len(diffs),
                                 "differing": diffs}))
     bad = [d for d in diffs if not d["top2_gap"] < NEAR_TIE]
     if bad:
         raise AssertionError(f"float32 served tokens differ from the "
                              f"sequential baseline beyond near-ties: {bad}")
-    out["parity"] = {"requests": len(want), "differing": diffs}
+    out[f"parity_{arch}"] = {"requests": len(want), "differing": diffs}
 
 
 def _kernel_time(prof):
@@ -402,7 +620,7 @@ def _kernel_time(prof):
     return sum(r[0] for r in rows), sum(r[2] for r in rows), rows[:6]
 
 
-def phase_profile(out):
+def phase_profile(out, arch):
     """Where serving time goes on the card: one bf16 prefill (S=384) and
     decode steps of a full 4-slot batch.  The host clock (no profiler)
     gives each call's wall time; ``torch.profiler`` gives the device's
@@ -412,7 +630,7 @@ def phase_profile(out):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import ARCHS
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(ARCHS[ARCH].cfg, slots=4, max_len=MAX_LEN,
+    eng = ServeEngine(ARCHS[arch].cfg, slots=4, max_len=MAX_LEN,
                       device="cuda")
     prompt = list(range(1, 385))
     eng.warmup([len(prompt)])
@@ -432,45 +650,187 @@ def phase_profile(out):
         res[name] = {"wall_ms": wall, "device_ms": device_ms,
                      "device_busy_share": device_ms / wall,
                      "kernels": n_kernels, "top_kernels_ms_count": top}
-        log(f"profile {name} " + json.dumps(res[name]))
+        log(f"profile {arch} {name} " + json.dumps(res[name]))
     if not res["prefill_384"]["device_ms"] > 0:
         raise AssertionError("the profiler saw no device time")
-    out["profile"] = res
+    out[f"profile_{arch}"] = res
 
 
-PHASES = {1: phase_env, 2: phase_build, 3: phase_kernels, 4: phase_model,
-          5: phase_serve, 6: phase_parity, 7: phase_profile}
+# ------------------------------------------------------------- the SSD scan
+def ssd_bound(B, T, H, G, N, P, chunk, dtype, init):
+    """Least time for one SSD scan: each input read once and each output
+    written once over the memory rate, against the operations this T needs
+    over the peak rate of the inputs' dtype.  Operations: per chunk of v
+    live steps with q = v (v + 1) / 2 causal pairs, c.b^T once per group
+    (2 N q), and per head att.x (2 P q), c.S_prev and the state update
+    (2 v N P each)."""
+    elem = 2 if dtype == "bfloat16" else 4
+    state = B * H * N * P * 4
+    nbytes = (B * T * H * P * elem + B * T * H * 4 + H * 4
+              + 2 * B * T * G * N * elem + B * T * H * P * 4
+              + state * (2 if init else 1))
+    flops = 0
+    for t0 in range(0, T, chunk):
+        v = min(chunk, T - t0)
+        q = v * (v + 1) // 2
+        flops += B * (G * 2 * N * q + H * (2 * P * q + 4 * v * N * P))
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _ssd_inputs(B, T, H, G, N, P, dtype, init, seed, dt_shift=0.0):
+    """x, b, c as views of one (B, T, H*P + 2*G*N) buffer, as the model
+    slices its conv output; dt a softplus; a_log float32."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = torch.randn((B, T, H * P + 2 * G * N), generator=g,
+                      device="cuda").to(getattr(torch, dtype))
+    x = xbc[..., :H * P].reshape(B, T, H, P)
+    b = xbc[..., H * P:H * P + G * N].reshape(B, T, G, N)
+    c = xbc[..., H * P + G * N:].reshape(B, T, G, N)
+    dt = F.softplus(torch.randn((B, T, H), generator=g, device="cuda")
+                    + dt_shift)
+    a_log = torch.randn((H,), generator=g, device="cuda") * 0.5
+    s0 = (torch.randn((B, H, N, P), generator=g, device="cuda")
+          if init else None)
+    return x, dt, a_log, b, c, s0
+
+
+def _scaled_err(got, want):
+    """Max abs error, the absolute limit SSD_TOL * max|want| applied to
+    every element, and whether the error is within it."""
+    err = float((got.float() - want.float()).abs().max())
+    limit = SSD_TOL * max(1.0, float(want.float().abs().max()))
+    return err, limit, err <= limit
+
+
+def phase_ssd(out):
+    import torch
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_padded_reference
+    cases = [dict(B=B, T=T, H=H, G=G, N=N, P=P, chunk=q, dtype=dt, init=i)
+             for (B, T, H, G, N, P, q, dt, i) in SSD_CASES]
+    cases += [dict(B=1, T=T, H=32, G=1, N=128, P=64, chunk=128,
+                   dtype="bfloat16", init=True, path=True)
+              for T in SSD_PATH_T]
+    cases.append(dict(cases[-1], path=False, dt_shift=DT_SHIFT))
+    rows = []
+    for n, c in enumerate(cases):
+        x, dt, a_log, b, cc, s0 = _ssd_inputs(
+            c["B"], c["T"], c["H"], c["G"], c["N"], c["P"], c["dtype"],
+            c["init"], seed=100 + n, dt_shift=c.get("dt_shift", 0.0))
+        y, fin = ops.ssd_fwd(x, dt, a_log, b, cc, chunk=c["chunk"],
+                             init_state=s0)
+        yr, fr = ssd_padded_reference(x, dt, a_log, b, cc, chunk=c["chunk"],
+                                      init_state=s0)
+        torch.cuda.synchronize()
+        err_y, lim_y, ok_y = _scaled_err(y, yr)
+        err_s, lim_s, ok_s = _scaled_err(fin, fr)
+        row = {k: c[k] for k in ("B", "T", "H", "G", "N", "P", "chunk",
+                                 "dtype", "init")}
+        row["dt_shift"] = c.get("dt_shift", 0.0)
+        row.update(max_abs_err=err_y, max_abs_err_state=err_s,
+                   max_abs_y=float(yr.abs().max()), tol=lim_y,
+                   tol_state=lim_s, ok=ok_y and ok_s,
+                   path=c.get("path", False))
+        if row["path"]:
+            kw = dict(chunk=c["chunk"], init_state=s0)
+            row["ms"] = cuda_ms(lambda: ops.ssd_fwd(x, dt, a_log, b, cc,
+                                                    **kw))
+            row["plain_ms"] = cuda_ms(lambda: ssd_padded_reference(
+                x, dt, a_log, b, cc, **kw))
+            row["library_ms"] = None
+            row.update(ssd_bound(c["B"], c["T"], c["H"], c["G"], c["N"],
+                                 c["P"], c["chunk"], c["dtype"],
+                                 c["init"]))
+        if c["T"] == SSD_TIMED_T:
+            # this check must pass the control and reject each fault
+            row["planted_faults"] = {}
+            for f in (SSD_CONTROL,) + KERNEL_FAULTS:
+                yf, ff = _faulty_ssd(f, x, dt, a_log, b, cc,
+                                     chunk=c["chunk"], init_state=s0)
+                ey, _, oy = _scaled_err(yf, yr)
+                es, _, os_ = _scaled_err(ff, fr)
+                row["planted_faults"][f] = {
+                    "max_abs_err": ey, "max_abs_err_state": es,
+                    "rejected": not (oy and os_)}
+                if row["planted_faults"][f]["rejected"] == (f == SSD_CONTROL):
+                    row["ok"] = False
+        log("ssd_fwd " + json.dumps(row))
+        rows.append(row)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"SSD kernel disagrees with plain version, "
+                             f"or its check misjudges a planted fault: "
+                             f"{bad}")
+    out["ssd_cases"] = rows
+
+
+PHASES = {
+    1: ("env", phase_env),
+    2: ("build", phase_build),
+    3: ("flash_attention kernel", phase_kernels),
+    4: ("gemma3-1b model", lambda out: phase_model(out, GEMMA)),
+    5: ("gemma3-1b serve (main path)", lambda out: phase_serve(out, GEMMA)),
+    6: ("gemma3-1b parity", lambda out: phase_parity(out, GEMMA)),
+    7: ("gemma3-1b profile", lambda out: phase_profile(out, GEMMA)),
+    8: ("ssd kernel", phase_ssd),
+    9: ("mamba2-370m model", lambda out: phase_model(out, MAMBA)),
+    10: ("mamba2-370m serve (main path)",
+         lambda out: phase_serve(out, MAMBA)),
+    11: ("mamba2-370m parity", lambda out: phase_parity(out, MAMBA)),
+    12: ("mamba2-370m profile", lambda out: phase_profile(out, MAMBA)),
+}
 
 
 def kernels_line(out):
-    rows = out.get("flash_attention_cases", [])
-    timed = next((r for r in rows if r["path"]
-                  and (r["S"], r["window"]) == TIMED), None)
-    path_err = max((r["max_abs_err"] for r in rows if r["path"]),
-                   default=None)
-    entry = {
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": FA_SOURCE, "replaces": FA_REPLACES,
-        "launches": out.get("main_path_launches", {}).get(
-            "flash_attention_fwd"),
-        "max_abs_err": path_err, "max_err": path_err,
-        "tol": TOL["bfloat16"],
-        "shape": None, "ms": None, "kernel_ms": None, "plain_ms": None,
-        "bound_ms": None, "bound_by": None, "library_ms": None,
-    }
-    if timed is not None:
-        entry.update(shape={k: timed[k] for k in ("B", "S", "H", "KH", "D",
-                                                  "window", "dtype")},
-                     ms=timed["ms"], kernel_ms=timed["ms"],
-                     plain_ms=timed["plain_ms"],
-                     bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
-                     library_ms=timed["library_ms"])
-    return {"kernels": [entry]}
+    fa_rows = out.get("flash_attention_cases", [])
+    ssd_rows = out.get("ssd_cases", [])
+    launches = out.get("main_path_launches", {})
+    fa_timed = next((r for r in fa_rows if r["path"]
+                     and (r["S"], r["window"]) == TIMED), None)
+    ssd_timed = next((r for r in ssd_rows if r["path"]
+                      and r["T"] == SSD_TIMED_T), None)
+    entries = []
+    for name, source, replaces, rows, timed, tol, rule, keys in (
+            ("flash_attention_fwd", FA_SOURCE, FA_REPLACES, fa_rows,
+             fa_timed, TOL["bfloat16"],
+             f"|kernel - plain| <= {TOL['bfloat16']} * (1 + |plain|)",
+             ("B", "S", "H", "KH", "D", "window", "dtype")),
+            ("ssd_fwd", SSD_SOURCE, SSD_REPLACES, ssd_rows, ssd_timed,
+             ssd_timed["tol"] if ssd_timed else None,
+             f"|kernel - plain| <= {SSD_TOL} * max|plain| (tol is that "
+             f"limit at the timed shape)",
+             ("B", "T", "H", "G", "N", "P", "chunk", "dtype"))):
+        path_err = max((r["max_abs_err"] for r in rows if r["path"]),
+                       default=None)
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.get(name),
+            "max_abs_err": path_err, "max_err": path_err, "tol": tol,
+            "tol_rule": rule,
+            "shape": None, "ms": None, "kernel_ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None,
+        }
+        if timed is not None:
+            entry.update(shape={k: timed[k] for k in keys},
+                         ms=timed["ms"], kernel_ms=timed["ms"],
+                         plain_ms=timed["plain_ms"],
+                         bound_ms=timed["bound_ms"],
+                         bound_by=timed["bound_by"],
+                         library_ms=timed["library_ms"])
+        if name == "ssd_fwd":
+            entry["library"] = "no single PyTorch call computes the SSD scan"
+        entries.append(entry)
+    return {"kernels": entries}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)),
                     help="comma-separated phase numbers to run")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also write every number of the run to PATH")
@@ -489,9 +849,10 @@ def main(argv=None) -> int:
     out = {}
     for p in phases:
         t0 = time.monotonic()
-        log(f"== phase {p}: {PHASES[p].__name__}")
+        title, fn = PHASES[p]
+        log(f"== phase {p}: {title}")
         try:
-            PHASES[p](out)
+            fn(out)
         except Exception:
             traceback.print_exc()
             log(f"== phase {p} FAILED")

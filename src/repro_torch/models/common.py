@@ -134,5 +134,12 @@ def silu(x):
     return F.silu(x)
 
 
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, i.e.
+    ``max(x, 0) + log1p(exp(-|x|))``, in ``x``'s dtype."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 __all__ = ["P", "tree_map", "stack_spec", "init_param", "init_tree",
-           "rms_norm", "layer_norm", "softcap", "rotary", "gelu", "silu"]
+           "rms_norm", "layer_norm", "softcap", "rotary", "gelu", "silu",
+           "softplus"]

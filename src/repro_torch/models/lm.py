@@ -7,9 +7,10 @@ over it; here a Python loop walks it).  Parameter and cache trees keep the
 reference's paths and layouts, so :mod:`repro_torch.bridge` copies weights
 leaf for leaf.
 
-This slice covers the dense attention families (mixers ``attn`` and
-``local``).  Other mixers, MoE, MTP and encoder-decoder models raise
-NotImplementedError.
+Mixers ported so far: ``attn`` and ``local`` (GQA, :mod:`.attention`) and
+``ssd`` (Mamba-2, :mod:`.mamba2`); a layer's MLP half is a dense MLP or,
+for ``mlp == "none"`` (Mamba-2), absent.  Other mixers, MoE, MTP and
+encoder-decoder models raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import mamba2 as m2
 from .common import (P, gelu, init_tree, layer_norm, rms_norm, silu, softcap,
                      stack_spec, tree_map)
 from ..configs.config import ModelCfg
@@ -95,30 +97,54 @@ def mlp_apply(p, x, cfg: ModelCfg):
 
 
 # ------------------------------------------------------------------ layers
+MIXER_SPECS = {
+    "attn": attn.gqa_specs,
+    "local": attn.gqa_specs,
+    "ssd": m2.mamba2_specs,
+}
+_MLPS = ("gated_silu", "gated_gelu", "gelu", "none")
+
+
 def layer_specs(cfg: ModelCfg, desc: Desc) -> Dict[str, Any]:
     mixer, mlp_kind = desc
-    if mixer not in ("attn", "local"):
+    if mixer not in MIXER_SPECS:
         raise NotImplementedError(_LATER.format(f"mixer {mixer!r}"))
-    if mlp_kind not in ("gated_silu", "gated_gelu", "gelu"):
+    if mlp_kind not in _MLPS:
         raise NotImplementedError(_LATER.format(f"mlp {mlp_kind!r}"))
-    sp: Dict[str, Any] = {"ln1": norm_specs(cfg), "mix": attn.gqa_specs(cfg),
-                          "ln2": norm_specs(cfg), "mlp": mlp_specs(cfg)}
+    sp: Dict[str, Any] = {"ln1": norm_specs(cfg),
+                          "mix": MIXER_SPECS[mixer](cfg)}
+    if mlp_kind != "none":  # mamba2: the block IS the layer, no FFN half
+        sp["ln2"] = norm_specs(cfg)
+        sp["mlp"] = mlp_specs(cfg)
     if cfg.post_norms:
         sp["ln1p"] = norm_specs(cfg)
-        sp["ln2p"] = norm_specs(cfg)
+        if mlp_kind != "none":
+            sp["ln2p"] = norm_specs(cfg)
     return sp
+
+
+def mixer_apply(kind: str, p, x, *, cfg: ModelCfg, positions, cache,
+                fresh_cache: bool = False):
+    if kind in ("attn", "local"):
+        return attn.gqa_apply(p, x, cfg=cfg, kind=kind, positions=positions,
+                              cache=cache, fresh_cache=fresh_cache)
+    if kind == "ssd":
+        return m2.mamba2_apply(p, x, cfg=cfg, cache=cache)
+    raise NotImplementedError(_LATER.format(f"mixer {kind!r}"))
 
 
 def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
                 fresh_cache: bool = False):
-    mixer, _ = desc
+    mixer, mlp_kind = desc
     h = norm_apply(lp["ln1"], x, cfg)
-    mix, new_cache = attn.gqa_apply(lp["mix"], h, cfg=cfg, kind=mixer,
-                                    positions=positions, cache=cache,
-                                    fresh_cache=fresh_cache)
+    mix, new_cache = mixer_apply(mixer, lp["mix"], h, cfg=cfg,
+                                 positions=positions, cache=cache,
+                                 fresh_cache=fresh_cache)
     if cfg.post_norms:
         mix = norm_apply(lp["ln1p"], mix, cfg)
     x = x + mix
+    if mlp_kind == "none":
+        return x, new_cache
     out = mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg), cfg)
     if cfg.post_norms:
         out = norm_apply(lp["ln2p"], out, cfg)
@@ -128,6 +154,8 @@ def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
 def mixer_cache_spec(cfg: ModelCfg, kind: str, batch: int, max_len: int):
     if kind in ("attn", "local"):
         return attn.gqa_cache_spec(cfg, kind, batch, max_len)
+    if kind == "ssd":
+        return m2.mamba2_cache_spec(cfg, batch)
     raise NotImplementedError(_LATER.format(f"{kind!r} cache"))
 
 
@@ -172,7 +200,7 @@ def _index(tree, i: int):
 
 # ---------------------------------------------------------------- the model
 class TransformerLM(nn.Module):
-    """Decoder-only LM (the dense attention families)."""
+    """Decoder-only LM (the dense attention families and Mamba-2)."""
 
     def __init__(self, cfg: ModelCfg):
         super().__init__()
@@ -318,12 +346,14 @@ class TransformerLM(nn.Module):
             specs)
 
     def prefill(self, tokens, caches):
-        """Forward over a prompt into *empty* caches (``init_cache``) from
-        position 0; returns (last_logits, caches).  Raises ValueError if a
-        cache holds an entry: attention then runs as causal self-attention
-        over the prompt, which is what attending over an empty cache is."""
-        used = torch.stack([u["pos"].max() for seg in caches for u in seg])
-        if bool((used >= 0).any()):
+        """Forward over a prompt from position 0; returns (last_logits,
+        caches).  Attention caches must be empty (``init_cache``), else
+        ValueError: attention then runs as causal self-attention over the
+        prompt, which is what attending over an empty cache is.  An SSD
+        cache needs no check: its scan continues from whatever state the
+        cache holds, as the reference's does."""
+        pos = [u["pos"].max() for seg in caches for u in seg if "pos" in u]
+        if pos and bool((torch.stack(pos) >= 0).any()):
             raise ValueError("prefill needs empty caches (init_cache)")
         x = self.embed(tokens)
         h, caches, _ = self.forward(x, positions=self._positions(tokens),

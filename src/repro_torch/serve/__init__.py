@@ -1,10 +1,11 @@
 """repro_torch.serve — event-driven LM serving on the EDAT runtime, in PyTorch.
 
 The port of ``repro.serve``: the PyTorch model stack (prefill / decode
-steps, KV caches, the flash kernel on the card) driven entirely by EDAT events
-(typed channels, persistent tasks, event-carried backpressure).  See
+steps, per-slot caches, the flash and SSD kernels on the card) driven
+entirely by EDAT events (typed channels, persistent tasks, event-carried
+backpressure).  See
 :mod:`repro_torch.serve.program` for the channel contract and
-:mod:`repro_torch.serve.engine` for the per-slot KV-cache lifecycle.
+:mod:`repro_torch.serve.engine` for the per-slot cache lifecycle.
 
 ::
 

@@ -1,5 +1,6 @@
 """The compute half of the serving subsystem: batched decode slots with a
-per-slot KV-cache lifecycle.
+per-slot cache lifecycle (K/V for attention layers, conv tail and state
+for SSD layers).
 
 The counterpart of ``repro.serve.engine``.  :class:`ServeEngine` owns the
 model, its parameters, and one decode cache of ``slots`` batch rows.  The
@@ -9,8 +10,9 @@ two operations the event layer drives:
   a *fresh single-request cache* (length ``max_len``, so its per-layer
   shapes match one slot of the batch cache) and return the first greedy
   token plus that cache.  It touches no shared decode state, so the event
-  layer runs it concurrently with decode ticks.  Its attention goes
-  through the flash kernel on the card.
+  layer runs it concurrently with decode ticks.  On the card its
+  attention goes through the flash kernel and its SSD scan through the
+  SSD kernel.
 * :meth:`attach` / :meth:`step` — splice a prefilled cache into a batch
   slot and advance the whole batch one greedy token.  ``attach``
   overwrites *every* cache leaf of the slot, which is what makes slot
@@ -19,7 +21,8 @@ two operations the event layer drives:
 
 Tensors here are updated in place where the reference builds new arrays:
 ``attach`` copies the prefilled cache into the slot row
-(``index_copy_``) and the decode step writes K/V into the batch cache.
+(``index_copy_``) and the decode step writes K/V (or the SSD conv tail and
+state) into the batch cache.
 
 ``torch.inference_mode`` is thread-local and the event layer runs prefill
 and decode ticks on worker threads, so each method that touches tensors
@@ -70,7 +73,8 @@ def _make_splice(model, slots: int):
     axes = [1 if r > 1 else 0 for (_, r) in model.segments]
 
     def splice(caches, pcache, slot):
-        idx = torch.tensor([slot], device=caches[0][0]["pos"].device)
+        leaf = next(iter(caches[0][0].values()))
+        idx = torch.tensor([slot], device=leaf.device)
         for seg, pseg, axis in zip(caches, pcache, axes):
             for unit, punit in zip(seg, pseg):
                 for key, c in unit.items():
@@ -150,8 +154,9 @@ class ServeEngine:
     # ------------------------------------------------------------ decode
     def attach(self, slot: int, prompt_len: int, first_token: int,
                pcache: Any) -> None:
-        """Splice a prefilled request into ``slot``: the whole slot is
-        overwritten (KV pages, pos markers) — the per-slot cache reset on
+        """Splice a prefilled request into ``slot``: every cache leaf of
+        the slot is overwritten (K/V and pos markers of attention layers,
+        conv tail and state of SSD layers) — the per-slot cache reset on
         admit."""
         with torch.inference_mode():
             self._splice(self.caches, pcache, slot)

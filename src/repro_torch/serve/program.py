@@ -22,7 +22,7 @@ The server rank runs four persistent tasks:
 * ``serve.prefill`` — one ``admit`` event per reserved slot.  Runs the
   prompt-length-dependent prefill *outside* the server lock (a long
   prompt never stalls the decode batch), then takes the lock only to
-  splice the prefilled cache into its slot — the per-slot KV reset that
+  splice the prefilled cache into its slot — the per-slot cache reset that
   makes slot reuse safe.
 * ``serve.decode`` — the continuous-batching tick.  Exactly one
   self-sustaining ``decode_tick`` chain exists at any time, guarded by a
@@ -224,7 +224,7 @@ class ServeProgram:
     def _complete(self, ctx: edat.Context, slot: int,
                   rec: Dict[str, Any]) -> None:
         """Server lock held: record the request, answer the client, free
-        the slot (the KV reset itself happens on the *next* admit's
+        the slot (the cache reset itself happens on the *next* admit's
         splice — a freed slot is never read before it is overwritten)."""
         rec.setdefault("t_done", time.monotonic())
         rec["n_out"] = len(rec["tokens"])

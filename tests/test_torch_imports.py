@@ -26,6 +26,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
 assert not bad, bad
+for name in ("repro_torch.models.mamba2", "repro_torch.kernels.ssd.ops",
+             "repro_torch.kernels.ssd.ref"):
+    assert name in names, name
 """
 
 
@@ -35,7 +38,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 30      # configs, runtime, models, kernels, serve
+    assert n_modules >= 33      # configs, runtime, models, kernels, serve
 
 
 CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
@@ -44,6 +47,8 @@ ENTRY_POINTS = {
     "SequentialEngine": lambda: SequentialEngine(CFG),
     "serve_program": lambda: serve_program("gemma3-1b"),
     "run_serve": lambda: run_serve(load=LoadSpec(requests=1)),
+    "run_serve_mamba2": lambda: run_serve(arch="mamba2-370m", reduced=False,
+                                          load=LoadSpec(requests=1)),
     "run_sequential": lambda: run_sequential(CFG, []),
 }
 

@@ -11,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as tfa   # noqa: E402
+from repro_torch.kernels.ssd import ops as tssd              # noqa: E402
+from repro_torch.kernels.ssd import ref as tssd_ref          # noqa: E402
 
 # (S, H, KH, D, window, softcap, dtype): the reference's FA_CASES, ragged
 # tails, and the serving path's shapes (gemma3-1b: 4 heads, 1 KV head,
@@ -66,3 +68,93 @@ def test_flash_kernel_refuses_unsupported_head_dim(cuda):
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_fwd(q, q[:, :1].contiguous(),
                                 q[:, :1].contiguous(), scale=1.0)
+
+
+# (B, T, H, G, N, P, chunk, dtype, init_state): the reference's SSD_CASES,
+# ragged tails, an initial state, and the serving path's shapes
+# (mamba2-370m prefill: B=1, 32 heads of 64, 1 group, state 128, chunk 128)
+SSD_CASES = [
+    (2, 256, 4, 1, 32, 32, 64, "float32", False),
+    (2, 256, 8, 2, 64, 64, 128, "float32", False),
+    (2, 128, 2, 2, 16, 64, 32, "float32", False),
+    (2, 256, 4, 1, 128, 64, 128, "bfloat16", False),
+    (2, 100, 4, 2, 32, 32, 128, "float32", True),
+    (2, 300, 4, 2, 32, 32, 128, "float32", True),
+    (1, 39, 8, 1, 16, 16, 32, "float32", True),
+    (1, 100, 32, 1, 128, 64, 128, "bfloat16", True),
+    (1, 511, 32, 1, 128, 64, 128, "bfloat16", False),
+]
+# bf16 inputs too: kernel and plain version read the same values and both
+# compute in float32, so no bf16 rounding separates them
+SSD_TOL = 1e-4
+
+
+def _ssd_inputs(B, T, H, G, N, P, dtype, init, device):
+    """numpy-seeded inputs; x, b and c are views of one (B, T, H*P + 2*G*N)
+    buffer, as the model hands them over."""
+    rng = np.random.default_rng(T * 31 + N)
+    dt_ = getattr(torch, dtype)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (B, T, H * P + 2 * G * N), dtype=np.float32)).to(device, dt_)
+    x = xbc[..., :H * P].reshape(B, T, H, P)
+    b = xbc[..., H * P:H * P + G * N].reshape(B, T, G, N)
+    c = xbc[..., H * P + G * N:].reshape(B, T, G, N)
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal(
+        (B, T, H), dtype=np.float32)))).to(device)
+    a_log = torch.from_numpy(rng.standard_normal(H, dtype=np.float32)
+                             * 0.5).to(device)
+    s0 = (torch.from_numpy(rng.standard_normal((B, H, N, P),
+                                                dtype=np.float32)).to(device)
+          if init else None)
+    return x, dt, a_log, b, c, s0
+
+
+def _close_scaled(out, ref, tol):
+    """Every element within tol * max|ref|: float32 sums of a chunk of
+    products cancel in places, so their rounding scales with the output's
+    largest magnitude."""
+    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,G,N,P,chunk,dtype,init", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, B, T, H, G, N, P, chunk, dtype,
+                                  init):
+    x, dt, a_log, b, c, s0 = _ssd_inputs(B, T, H, G, N, P, dtype, init,
+                                         cuda)
+    before = tssd.kernel_launches
+    y, fin = tssd.ssd_fwd(x, dt, a_log, b, c, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert tssd.kernel_launches == before + 1
+    yr, fr = tssd_ref.ssd_padded_reference(x, dt, a_log, b, c, chunk=chunk,
+                                           init_state=s0)
+    assert y.dtype == torch.float32 and y.shape == (B, T, H, P)
+    _close_scaled(y, yr, SSD_TOL)
+    _close_scaled(fin, fr, SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_matches_plain_long_memory(cuda):
+    """The path shape with dt ~ 0.02: the state carries across chunks, so
+    the initial state and the term between chunks reach every output."""
+    x, dt, a_log, b, c, s0 = _ssd_inputs(1, 511, 32, 1, 128, 64, "bfloat16",
+                                         True, cuda)
+    dt = dt * 0.02
+    y, fin = tssd.ssd_fwd(x, dt, a_log, b, c, chunk=128, init_state=s0)
+    yr, fr = tssd_ref.ssd_padded_reference(x, dt, a_log, b, c, chunk=128,
+                                           init_state=s0)
+    _close_scaled(y, yr, SSD_TOL)
+    _close_scaled(fin, fr, SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_unsupported_shapes(cuda):
+    x, dt, a_log, b, c, _ = _ssd_inputs(1, 64, 2, 1, 16, 16, "float32",
+                                        False, cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_fwd(x, dt, a_log, b, c, chunk=48)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros(1, 64, 2, 72, device=cuda)
+        tssd.ssd_fwd(wide, dt, a_log, b, c, chunk=32)
