@@ -8,17 +8,19 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Two paths are driven, gemma3-1b (flash attention) and
-mamba2-370m (the SSD scan), each at full width and depth:
+raise on failure.  Three paths are driven, gemma3-1b (flash attention),
+mamba2-370m (the SSD scan) and recurrentgemma-9b (the RG-LRU recurrence and
+flash attention on its local layers), each at full width and depth:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
 2. build: every CUDA kernel from the sources in the checkout, all ``nvcc``
    at once, with each kernel's registers and spills;
 3. the flash kernel against its plain PyTorch version on the card, on the
-   reference's test cases, ragged tails and the serving path's shapes,
-   with CUDA-event times of the kernel, the plain version and one PyTorch
-   library call computing the same function (a yardstick only);
+   reference's test cases, ragged tails and the serving paths' shapes
+   (gemma3-1b's and recurrentgemma-9b's), with CUDA-event times of the
+   kernel, the plain version and one PyTorch library call computing the
+   same function (a yardstick only);
 4. gemma3-1b with seeded random weights: prefill through the kernel
    against prefill through plain attention, float32 (gated) and bfloat16
    (reported);
@@ -42,7 +44,24 @@ mamba2-370m (the SSD scan), each at full width and depth:
 10. mamba2-370m's main path: event-driven serving in bf16, counted as in
     phase 5;
 11. float32 serving of mamba2-370m against the sequential baseline;
-12. where mamba2-370m's serving time goes, as in phase 7.
+12. where mamba2-370m's serving time goes, as in phase 7;
+13. the RG-LRU kernel against its plain version on the card: the
+    reference's test cases, ragged T, a nonzero initial state (final state
+    compared too), the serving path's shapes timed as in phase 3 (no single
+    PyTorch call computes it) and a long-memory case (Griffin's init of
+    lam); the same check must reject faults planted in the plain scan;
+14. recurrentgemma-9b: prefill through the kernels against prefill through
+    the plain versions, float32 (gated, at the port's init and again with
+    Griffin's init of lam, with faults planted in the plain scan) and
+    bfloat16 (reported), one parameter tree shared by both models;
+15. recurrentgemma-9b's main path: event-driven serving in bf16, counted as
+    in phase 5;
+16. float32 serving of recurrentgemma-9b against the sequential baseline;
+17. where recurrentgemma-9b's serving time goes, as in phase 7, with the
+    cost of casting its float32 gate matrices at every decode step.
+
+Every phase starts with the card's memory freed and prints its peak
+(``torch.cuda.max_memory_allocated``).
 
 It prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
 its last line; ``--json PATH`` also writes every number to PATH.
@@ -116,8 +135,10 @@ SSD_TIMED_T = 511
 # output's largest magnitude
 SSD_TOL = 1e-4
 
-GEMMA, MAMBA = "gemma3-1b", "mamba2-370m"
-PATH_KERNEL = {GEMMA: "flash_attention_fwd", MAMBA: "ssd_fwd"}  # prefill's
+GEMMA, MAMBA, RGEMMA = "gemma3-1b", "mamba2-370m", "recurrentgemma-9b"
+# the kernel each kind of layer launches once a prefill
+KIND_KERNEL = {"attn": "flash_attention_fwd", "local": "flash_attention_fwd",
+               "ssd": "ssd_fwd", "rglru": "rglru_fwd"}
 MAX_LEN = 512             # = gemma3-1b's window: no prompt outgrows a cache
 PREFILL_S = (100, 256, 511)
 LOGIT_TOL = 1e-3          # float32 kernel path vs plain path, last logits
@@ -143,6 +164,53 @@ LOGIT_FAULTS = {"seeded": ("bf16_inputs",),
 DT_SHIFT = -4.0
 NEAR_TIE = 1e-3           # a differing token is a near-tie below this gap
 
+# the serving path's flash shapes on recurrentgemma-9b's 12 local layers:
+# B=1, 16 heads, 1 KV head, head dim 256, window 2048, bf16
+RG_FA_SHAPE = dict(H=16, KH=1, D=256, window=2048)
+
+RG_SOURCE = "src/repro_torch/csrc/rglru_fwd.cu"
+RG_REPLACES = "src/repro/kernels/rglru/kernel.py:59"
+# (B, T, W, h0, lam): the reference's RG_CASES (tests/test_kernels.py, drawn
+# at B=2: x normal, r and i sigmoids of normals, lam = |normal| + 0.2), then
+# ragged T with an initial state, which the TPU kernel does not take
+RG_CASES = [(2, 128, 128, False, "test"), (2, 256, 256, False, "test"),
+            (2, 128, 512, False, "test"), (2, 512, 128, False, "test"),
+            (2, 1, 256, True, "test"), (2, 39, 256, True, "test"),
+            (2, 100, 256, True, "test")]
+# the serving path's shapes: recurrentgemma-9b prefill, B=1, width 4096,
+# float32 x/r/i, an initial state (prefill passes the cache's)
+RG_PATH_T = (100, 256, 384, 511)
+RG_TIMED_T = 511
+# |kernel - plain| <= RG_TOL * (1 + |plain|): the reference's rtol = atol
+RG_TOL = 2e-4
+# faults planted in the plain RG-LRU scan: h rounded to bf16 at every step,
+# h0 ignored, the carry reset every RG_PIECE steps; the control runs the
+# scan in pieces of RG_PIECE steps carrying h, with no fault.  Phase 13's
+# check must pass the control and reject every fault at T = RG_TIMED_T;
+# phase 14's float32 logit gate must pass the control and reject the
+# faults named in RG_LOGIT_FAULTS (prefill starts from h0 = 0, so no_h0
+# does not apply there)
+RG_PIECE = 128
+RG_CONTROL = "pieces"
+RG_FAULTS = ("bf16_carry", "no_h0", "reset_128")
+RG_LOGIT_FAULTS = {"seeded": (), "layer_fan_in": ("bf16_carry", "reset_128"),
+                   "griffin_init": ("bf16_carry", "reset_128")}
+# phase 14's float32 noise floor on the RG-LRU path: the plain path with
+# its scan taken step by step (the kernel's order) instead of in log depth,
+# an exact reformulation, so the two differ by float32 rounding alone.  At
+# the port's init (the reference's rule: a stacked leaf's fan-in is its
+# layers axis, 12 or 2 here) the gate matrices are ~18x too wide, the
+# gates saturate, and where r ~ 0 the scan's 1 - exp(2 log_a) is a few
+# ulps: rounding is amplified through 38 layers.  So that weight set is
+# gated at FLOOR_FACTOR floors; the "layer_fan_in" set (the same draw with
+# every stacked leaf scaled to one layer's fan-in) and Griffin's lam on top
+# of it are gated at LOGIT_TOL
+RG_FLOOR = "sequential"
+# phase 13's long-memory case and phase 14's second float32 weight set draw
+# lam as Griffin's init does (arXiv:2402.19427): a = exp(-8 softplus(lam))
+# uniform in [0.9, 0.999], so the state carries across pieces
+GRIFFIN_A = (0.9, 0.999)
+
 
 def log(*a):
     print(*a, flush=True)
@@ -162,6 +230,36 @@ def cuda_ms(fn, iters=20, warmup=3):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def kernel_device_ms(fn, entry, iters=20, warmup=3):
+    """Mean device milliseconds of one launch of the kernel whose name
+    holds ``entry`` (``fn`` launches it once a call), from
+    ``torch.profiler``'s device events: the kernel's own time, without the
+    host's time between launches (which CUDA events around back-to-back
+    calls include when a call's host work outlasts its kernel).  The
+    profiler may drop some of a window's events, so the mean is over the
+    launches it recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and entry in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            total += float(e.self_cuda_time_total if t is None else t)
+            count += int(e.count)
+    if not 0 < count <= iters:
+        raise AssertionError(f"profiled {count} launches of {entry} in "
+                             f"{iters} calls")
+    return total / 1e3 / count
 
 
 def fa_bound(B, H, KH, S, D, window, dtype):
@@ -230,6 +328,7 @@ def phase_build(out):
     log("ssd_fwd ptxas " + json.dumps({
         "kernels": ptxas.get("ssd_fwd"),
         "dynamic_smem_bytes_at_N128_P64_chunk128": smem}))
+    log("rglru_fwd ptxas " + json.dumps({"kernels": ptxas.get("rglru_fwd")}))
     out["build_s"] = secs
     out["ptxas"] = ptxas
     out["ssd_smem_bytes"] = smem
@@ -268,8 +367,10 @@ def phase_kernels(out):
     cases = [dict(S=S, H=H, KH=KH, D=D, window=w, softcap=c, dtype=dt, B=2)
              for (S, H, KH, D, w, c, dt) in FA_CASES]
     cases += [dict(S=S, H=4, KH=1, D=256, window=w, softcap=None,
-                   dtype="bfloat16", B=1, path=True)
+                   dtype="bfloat16", B=1, path=GEMMA)
               for S in PATH_S for w in PATH_WINDOWS]
+    cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=RGEMMA,
+                   **RG_FA_SHAPE) for S in PATH_S]
     rows = []
     for n, c in enumerate(cases):
         q, k, v = _fa_inputs(c["S"], c["H"], c["KH"], c["D"], c["dtype"],
@@ -286,10 +387,12 @@ def phase_kernels(out):
         row = {k2: c[k2] for k2 in ("B", "S", "H", "KH", "D", "window",
                                     "softcap", "dtype")}
         row.update(max_abs_err=float(err.max()), tol=tol, ok=ok,
-                   path=c.get("path", False))
+                   path=c.get("path", False))   # False, or the path's arch
         if row["path"]:
             row["ms"] = cuda_ms(lambda: ops.flash_attention_fwd(q, k, v,
                                                                 **kw))
+            row["device_ms"] = kernel_device_ms(
+                lambda: ops.flash_attention_fwd(q, k, v, **kw), "fwd_kernel")
             row["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v,
                                                                 **kw))
             row["library_ms"] = cuda_ms(_sdpa(q, k, v, scale=kw["scale"],
@@ -306,8 +409,42 @@ def phase_kernels(out):
 
 def _all_ops():
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru import ops as rglru
     from repro_torch.kernels.ssd import ops as ssd
-    return {"flash_attention_fwd": fa, "ssd_fwd": ssd}
+    return {"flash_attention_fwd": fa, "ssd_fwd": ssd, "rglru_fwd": rglru}
+
+
+def path_kernels(cfg):
+    """{kernel: the model's layers that launch it once a prefill}."""
+    counts = {}
+    for kind in cfg.layer_kinds():
+        counts[KIND_KERNEL[kind]] = counts.get(KIND_KERNEL[kind], 0) + 1
+    return counts
+
+
+def _counts():
+    """(kernel launches, plain calls) of every wrapper, now."""
+    return {k: (o.kernel_launches, o.plain_calls)
+            for k, o in _all_ops().items()}
+
+
+def _since(before):
+    """Kernel launches and plain calls of each wrapper since ``before``,
+    leaving out the wrappers with none."""
+    now = _counts()
+    launched = {k: now[k][0] - before[k][0] for k in now}
+    plain = {k: now[k][1] - before[k][1] for k in now}
+    return ({k: n for k, n in launched.items() if n},
+            {k: n for k, n in plain.items() if n})
+
+
+def _free():
+    """Collect dropped engines and models (the serving runtime holds them
+    in reference cycles) and return their memory to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _full_model(arch, dtype, attn_impl, params=None, chunk=None):
@@ -335,8 +472,11 @@ def _prefill(model, tokens):
 
 
 def phase_model(out, arch):
-    """Full-width, full-depth prefill through the kernel against prefill
-    through the plain version, same weights: float32 gated, bf16 shown.
+    """Full-width, full-depth prefill through the kernels against prefill
+    through the plain versions, same weights (one parameter tree shared by
+    both models): float32 gated, bf16 shown.  Every prefill of the kernel
+    path must launch each kernel once per layer of its kind and call no
+    plain version.
 
     For the SSD path the plain version also runs at half the chunk size,
     an exact reformulation of the same scan: the two plain runs differ by
@@ -344,18 +484,25 @@ def phase_model(out, arch):
     difference (``floor``) is this model's noise floor.  The float32 gate
     is then the larger of LOGIT_TOL and FLOOR_FACTOR floors; planted in the
     plain path, the control must pass it and each of LOGIT_FAULTS fail
-    it."""
+    it.  For the RG-LRU path the gate is LOGIT_TOL, and the control and
+    RG_LOGIT_FAULTS are planted in its plain scan the same way."""
     import torch
-    ops = _all_ops()[PATH_KERNEL[arch]]
     res = {}
     runs = [("float32", "seeded"), ("bfloat16", "seeded")]
     if arch == MAMBA:
         runs.append(("float32", "mamba2_init"))
+    if arch == RGEMMA:
+        runs[1:1] = [("float32", "layer_fan_in")]
+        runs.append(("float32", "griffin_init"))
     for dtype, weights in runs:
         kmodel = _full_model(arch, dtype, "kernel")
         if weights == "mamba2_init":
             _mamba2_init(kmodel.params.to_dict())
-        n_layers = kmodel.cfg.n_layers
+        if weights in ("layer_fan_in", "griffin_init"):
+            _layer_fan_in(kmodel)
+        if weights == "griffin_init":
+            _griffin_init(kmodel.params.to_dict())
+        expected = path_kernels(kmodel.cfg)
         rmodel = _full_model(arch, dtype, "ref",
                              params=kmodel.params.to_dict())
         cmodel = (_full_model(arch, dtype, "ref",
@@ -366,49 +513,119 @@ def phase_model(out, arch):
         for S in PREFILL_S:
             toks = torch.randint(0, kmodel.cfg.vocab, (1, S), generator=g,
                                  device="cuda")
-            before = ops.kernel_launches
+            before = _counts()
             lk = _prefill(kmodel, toks)
-            launched = ops.kernel_launches - before
+            launched, plain = _since(before)
             lr = _prefill(rmodel, toks)
             diff = float((lk - lr).abs().max())
             same = int(lk.argmax()) == int(lr.argmax())
-            floor = (float((_prefill(cmodel, toks) - lr).abs().max())
-                     if cmodel is not None else None)
+            floor, floor_same = None, True
+            if cmodel is not None:
+                floor = float((_prefill(cmodel, toks) - lr).abs().max())
+            if arch == RGEMMA and dtype == "float32":
+                lf = _plain_variant(arch, rmodel, toks, RG_FLOOR)
+                floor = float((lf - lr).abs().max())
+                floor_same = int(lf.argmax()) == int(lr.argmax())
             gate = max(LOGIT_TOL, FLOOR_FACTOR * (floor or 0.0))
-            faults = ({f: _planted_fault(rmodel, toks, lr, f, gate)
-                       for f in (SSD_CONTROL,) + SSD_FAULTS
-                       if f == "bf16_inputs" or S > rmodel.cfg.ssm.chunk}
-                      if cmodel is not None else {})
-            for f, r in faults.items():
-                r["gated"] = f == SSD_CONTROL or f in LOGIT_FAULTS[weights]
+            if arch == RGEMMA and weights != "seeded":
+                gate = LOGIT_TOL
+            if cmodel is not None:
+                faults = {f: _planted_fault(arch, rmodel, toks, lr, f, gate)
+                          for f in (SSD_CONTROL,) + SSD_FAULTS
+                          if f == "bf16_inputs" or S > rmodel.cfg.ssm.chunk}
+                control, gated = SSD_CONTROL, LOGIT_FAULTS[weights]
+            elif arch == RGEMMA and dtype == "float32":
+                faults = {f: _planted_fault(arch, rmodel, toks, lr, f, gate)
+                          for f in (RG_CONTROL,) + RG_FAULTS
+                          if f != "no_h0"
+                          and (f != "reset_128" or S > RG_PIECE)}
+                control, gated = RG_CONTROL, RG_LOGIT_FAULTS[weights]
+            else:
+                faults, control, gated = {}, None, ()
+            chaotic = arch == RGEMMA and weights == "seeded"
+            for f, r in faults.items():   # at the floor's scale: reported
+                r["gated"] = (f == control and not chaotic) or f in gated
             t_k = _host_ms(lambda: _prefill(kmodel, toks))
             t_r = _host_ms(lambda: _prefill(rmodel, toks))
             row = {"arch": arch, "dtype": dtype, "weights": weights, "S": S,
                    "max_logit_diff": diff, "same_first_token": same,
                    "max_abs_logit": float(lr.abs().max()),
-                   "plain_floor": floor, "gate": gate,
+                   "plain_floor": floor,
+                   "plain_floor_same_first_token": floor_same, "gate": gate,
                    "planted_faults": faults,
-                   "kernel_launches": launched,
+                   "kernel_launches": launched, "plain_calls": plain,
                    "prefill_ms_kernel_path": t_k,
                    "prefill_ms_plain_path": t_r}
             log("model " + json.dumps(row))
             res[f"{dtype}_S{S}_{weights}"] = row
             if not torch.isfinite(lk).all():
                 raise AssertionError(f"non-finite logits: {row}")
-            if launched != n_layers:
-                raise AssertionError(f"prefill launched the kernel "
-                                     f"{launched} times, not {n_layers}")
-            if dtype == "float32" and (diff > gate or not same):
+            if launched != expected or plain:
+                raise AssertionError(f"prefill launched {launched} and "
+                                     f"called plain versions {plain}, not "
+                                     f"{expected} launches and none")
+            # the first token must agree, except on the RG-LRU path at the
+            # port's init, where float32 reordering alone moves the logits
+            # by a large part of their range (the floor), so whether a
+            # token flips there is chance
+            need_same = not (arch == RGEMMA and weights == "seeded")
+            if dtype == "float32" and (diff > gate
+                                       or (need_same and not same)):
                 raise AssertionError(f"float32 kernel path disagrees: {row}")
             missed = [f for f, r in faults.items() if r["gated"]
-                      and r["rejected"] == (f == SSD_CONTROL)]
+                      and r["rejected"] == (f == control)]
             if missed:
                 raise AssertionError(f"the float32 gate does not tell the "
                                      f"control from planted faults: "
                                      f"{missed}: {row}")
         del kmodel, rmodel, cmodel
-        torch.cuda.empty_cache()
+        _free()
     out[f"model_{arch}"] = res
+
+
+def _layer_fan_in(model):
+    """Scale, in place, every stacked leaf that the init draws at its
+    fan-in (``normal``, no scale) to one layer's fan-in: by sqrt(layers /
+    the layer's fan-in).  The init's rule (the reference's) takes a leaf's
+    fan-in from its first axis, the layers axis on a stacked leaf."""
+    import math
+    import torch
+    specs = model.param_specs()
+
+    def walk(spec, leaf, reps):
+        if isinstance(spec, dict):
+            for k in spec:
+                walk(spec[k], leaf[k], reps)
+        elif spec.init == "normal" and spec.scale is None:
+            layer = spec.shape[1:]
+            fan_in = layer[0] if len(layer) >= 2 else max(layer[-1], 1)
+            with torch.no_grad():
+                leaf.mul_(math.sqrt(reps / fan_in))
+
+    params = model.params.to_dict()
+    for si, (_, reps) in enumerate(model.segments):
+        if reps > 1:
+            walk(specs[f"seg{si}"], params[f"seg{si}"], reps)
+
+
+def _griffin_init(params):
+    """Overwrite, in place, every RG-LRU layer's lam as Griffin's init
+    draws it (seeded): a = exp(-8 softplus(lam)) uniform in GRIFFIN_A."""
+    import torch
+    g = torch.Generator().manual_seed(3)
+
+    def walk(t):
+        if not isinstance(t, dict):
+            return
+        if "lam" in t and "wa" in t:
+            lo, hi = GRIFFIN_A
+            u = lo + (hi - lo) * torch.rand(t["lam"].shape, generator=g,
+                                            dtype=torch.float64)
+            with torch.no_grad():
+                t["lam"].copy_(torch.log(torch.expm1(-torch.log(u) / 8)))
+        for v in t.values():
+            walk(v)
+    walk(params)
 
 
 def _mamba2_init(params):
@@ -466,17 +683,26 @@ def _faulty_scan(fault):
     return scan
 
 
-def _planted_fault(rmodel, toks, lr, fault, gate):
-    """Prefill of the plain model with ``fault`` planted in its scan: its
+def _plain_variant(arch, rmodel, toks, fault):
+    """Last logits of a prefill of the plain model with ``fault`` planted
+    in its scan (the SSD scan of mamba2-370m, the RG-LRU scan of
+    recurrentgemma-9b)."""
+    from repro_torch.models import mamba2, rglru
+    mod, faulty = ((mamba2, _faulty_scan(fault)) if arch == MAMBA
+                   else (rglru, _faulty_rglru_scan(fault)))
+    sound = mod._scan
+    mod._scan = faulty
+    try:
+        return _prefill(rmodel, toks)
+    finally:
+        mod._scan = sound
+
+
+def _planted_fault(arch, rmodel, toks, lr, fault, gate):
+    """The plain model's prefill with ``fault`` planted in its scan: its
     last logits' distance from the sound plain path's, and whether the
     float32 gate rejects it."""
-    from repro_torch.models import mamba2
-    sound = mamba2._scan
-    mamba2._scan = _faulty_scan(fault)
-    try:
-        lf = _prefill(rmodel, toks)
-    finally:
-        mamba2._scan = sound
+    lf = _plain_variant(arch, rmodel, toks, fault)
     diff = float((lf - lr).abs().max())
     same = int(lf.argmax()) == int(lr.argmax())
     return {"max_logit_diff": diff, "same_first_token": same,
@@ -509,7 +735,7 @@ def phase_serve(out, arch):
     from repro_torch.serve import run_serve
     load = _load()
     cfg = ARCHS[arch].cfg
-    name = PATH_KERNEL[arch]
+    expected = path_kernels(cfg)
     prefills = len(set(load.prompt_lens)) + load.requests
     all_ops = _all_ops()
     torch.cuda.synchronize()
@@ -533,8 +759,10 @@ def phase_serve(out, arch):
         "slots_leaked == 0": r["slots_leaked"] == 0,
         "queue_left == 0": r["queue_left"] == 0,
         "tick_execs == steps": r["tick_execs"] == r["steps"],
-        f"{name} launches == {cfg.n_layers} x {prefills}":
-            launches[name] == cfg.n_layers * prefills,
+        **{f"{name} launches == {n} x {prefills}":
+           launches[name] == n * prefills for name, n in expected.items()},
+        "no other kernel launched": not any(
+            n for k, n in launches.items() if k not in expected),
         "plain_calls == 0": not any(plain.values()),
         "tokens in vocab": all(0 <= t < cfg.vocab for rec in r["records"]
                                for t in rec["tokens"]),
@@ -545,15 +773,17 @@ def phase_serve(out, arch):
     out[f"serve_{arch}"] = {"summary": summary, "steps": r["steps"],
                             "kernel_launches": launches,
                             "plain_calls": plain}
-    out.setdefault("main_path_launches", {})[name] = launches[name]
+    out.setdefault("main_path_launches", {})[arch] = {
+        name: launches[name] for name in expected}
 
 
-def _top2_gap(cfg, prompt, tokens, step):
+def _top2_gap(cfg, prompt, tokens, step, params=None):
     """Top-2 logit gap of the sequential reference at ``step`` (0 = the
     prefill's token), replaying its own tokens."""
     import torch
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, slots=1, max_len=MAX_LEN, device="cuda")
+    eng = ServeEngine(cfg, slots=1, max_len=MAX_LEN, device="cuda",
+                      params=params)
     with torch.inference_mode():
         toks = torch.tensor([prompt], device="cuda")
         logits, caches = eng._prefill(toks)
@@ -565,20 +795,41 @@ def _top2_gap(cfg, prompt, tokens, step):
     return float(top[0] - top[1])
 
 
+def _layer_fan_in_numpy(arch):
+    """The port's float32 init of ``arch`` with every stacked leaf at one
+    layer's fan-in (``_layer_fan_in``), as host numpy arrays: a parameter
+    tree the serving entry points take as ``params``."""
+    from repro_torch import bridge
+    model = _full_model(arch, "float32", "kernel")
+    _layer_fan_in(model)
+    tree = bridge.params_to_numpy(model)
+    del model
+    _free()
+    return tree
+
+
 def phase_parity(out, arch):
+    """float32 served tokens against the sequential baseline's.  For
+    recurrentgemma-9b both serve the ``layer_fan_in`` weights (passed as
+    ``params``): at the port's init its float32 logits are rounding noise
+    at the scale of their top-2 gaps (phase 14's floor), so batched and
+    sequential serving, whose products round differently, part early."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
     cfg = ARCHS[arch].cfg.replace(dtype="float32")
+    params = _layer_fan_in_numpy(arch) if arch == RGEMMA else None
     res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                     max_len=MAX_LEN, load=load, device="cuda",
-                    dtype="float32")
+                    dtype="float32", params=params)
     got = {r["id"]: r["tokens"] for r in res["result"]["records"]}
+    _free()           # one float32 engine on the card at a time
     reqs = all_requests(load, 2, cfg.vocab)
     seq = run_sequential(cfg, reqs, max_len=MAX_LEN, realtime=False,
-                         device="cuda")
+                         device="cuda", params=params)
     want = {r["id"]: r["tokens"] for r in seq}
+    _free()
     prompts = {r["id"]: r["prompt"] for r in reqs}
     if set(got) != set(want):
         raise AssertionError("served and sequential request ids differ")
@@ -589,11 +840,13 @@ def phase_parity(out, arch):
             continue
         step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                     min(len(a), len(b)))
-        gap = (_top2_gap(cfg, prompts[rid], b, step)
+        gap = (_top2_gap(cfg, prompts[rid], b, step, params)
                if step < min(len(a), len(b)) else float("inf"))
         diffs.append({"id": rid, "step": step, "top2_gap": gap})
-        torch.cuda.empty_cache()
+        _free()
     log("parity " + json.dumps({"arch": arch, "requests": len(want),
+                                "weights": ("layer_fan_in" if params
+                                            else "seeded"),
                                 "identical": len(want) - len(diffs),
                                 "differing": diffs}))
     bad = [d for d in diffs if not d["top2_gap"] < NEAR_TIE]
@@ -653,7 +906,32 @@ def phase_profile(out, arch):
         log(f"profile {arch} {name} " + json.dumps(res[name]))
     if not res["prefill_384"]["device_ms"] > 0:
         raise AssertionError("the profiler saw no device time")
+    if arch == RGEMMA:
+        res["float32_gates"] = _gate_cost(
+            eng, res["decode_step_b4"]["device_ms"])
+        log(f"profile {arch} float32_gates "
+            + json.dumps(res["float32_gates"]))
     out[f"profile_{arch}"] = res
+
+
+def _gate_cost(eng, decode_device_ms):
+    """What the float32 gates cost a decode step: every RG-LRU layer casts
+    its bf16 W x W ``wa`` and ``wi`` to float32 at each call, as the
+    reference does, then multiplies the 4 slots' (4, 1, W) float32 input
+    by each.  CUDA-event times of the casts alone and of casts and
+    products, against the casts' bytes bound and the step's device time."""
+    import torch
+    with torch.inference_mode():
+        gates = [lp["mix"][k] for _, _, _, lp in eng.model.layer_params()
+                 if "wa" in lp["mix"] for k in ("wa", "wi")]
+        xf = torch.randn((4, 1, gates[0].shape[-1]), device="cuda")
+        cast_ms = cuda_ms(lambda: [w.float() for w in gates], iters=5)
+        gate_ms = cuda_ms(lambda: [xf @ w.float() for w in gates], iters=5)
+    n = sum(w.numel() for w in gates)
+    return {"matrices": len(gates), "cast_ms": cast_ms,
+            "cast_and_product_ms": gate_ms, "cast_bytes": 6 * n,
+            "cast_bound_ms": 6 * n / PEAK_BYTES * 1e3,
+            "share_of_decode_device_ms": gate_ms / decode_device_ms}
 
 
 # ------------------------------------------------------------- the SSD scan
@@ -740,6 +1018,9 @@ def phase_ssd(out):
             kw = dict(chunk=c["chunk"], init_state=s0)
             row["ms"] = cuda_ms(lambda: ops.ssd_fwd(x, dt, a_log, b, cc,
                                                     **kw))
+            row["device_ms"] = kernel_device_ms(
+                lambda: ops.ssd_fwd(x, dt, a_log, b, cc, **kw),
+                "ssd_fwd_kernel")
             row["plain_ms"] = cuda_ms(lambda: ssd_padded_reference(
                 x, dt, a_log, b, cc, **kw))
             row["library_ms"] = None
@@ -769,6 +1050,137 @@ def phase_ssd(out):
     out["ssd_cases"] = rows
 
 
+# ----------------------------------------------------------- the RG-LRU scan
+def rglru_bound(B, T, W, h0):
+    """Least time for one RG-LRU scan: x, r, i read and h written once
+    (float32), lam, h0 and the final state, over the memory rate, against
+    11 float32 operations a (b, t, w) element (log_a, 2 log_a, two exp,
+    1 - e, max, sqrt, i x, the product, and the multiply-add of the
+    carry) over the float32 rate."""
+    nbytes = 4 * (4 * B * T * W + W + B * W * (2 if h0 else 1))
+    flops = 11 * B * T * W
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["float32"]
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _rglru_inputs(B, T, W, h0, lam, seed):
+    """x normal, r and i sigmoids of normals, float32; lam as the
+    reference's kernel test draws it (``"test"``: |normal| + 0.2) or as
+    Griffin's init does (``"griffin"``); h0 normal or None."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, r, i = (torch.randn((B, T, W), generator=g, device="cuda")
+               for _ in range(3))
+    r, i = torch.sigmoid(r), torch.sigmoid(i)
+    if lam == "griffin":
+        lo, hi = GRIFFIN_A
+        u = lo + (hi - lo) * torch.rand((W,), generator=g, device="cuda",
+                                        dtype=torch.float64)
+        lv = torch.log(torch.expm1(-torch.log(u) / 8)).float()
+    else:
+        lv = torch.randn((W,), generator=g, device="cuda").abs() + 0.2
+    s0 = torch.randn((B, W), generator=g, device="cuda") if h0 else None
+    return x, r, i, lv, s0
+
+
+def _rg_err(got, want):
+    """Max abs error, max of |got - want| / (1 + |want|), and whether every
+    element is within RG_TOL * (1 + |want|)."""
+    err = (got - want).abs()
+    ratio = float((err / (1 + want.abs())).max())
+    return float(err.max()), ratio, ratio <= RG_TOL
+
+
+def _faulty_rglru(fault, x, r, i, lam, h0=None):
+    """The plain RG-LRU scan with one planted fault (RG_FAULTS), or none:
+    in pieces (RG_CONTROL) or step by step (RG_FLOOR).  Returns (h float32,
+    final state)."""
+    import torch
+    from repro_torch.kernels.rglru.ref import rglru_coeffs, rglru_reference
+    if fault in ("bf16_carry", RG_FLOOR):
+        a, b = rglru_coeffs(x, r, i, lam)
+        h = (torch.zeros_like(a[:, 0]) if h0 is None else h0.float())
+        hs = []
+        for t in range(a.shape[1]):
+            h = a[:, t] * h + b[:, t]
+            if fault == "bf16_carry":
+                h = h.bfloat16().float()
+            hs.append(h)
+        return torch.stack(hs, dim=1), h
+    s = None if fault == "no_h0" else h0
+    hs = []
+    for t0 in range(0, x.shape[1], RG_PIECE):
+        piece = slice(t0, t0 + RG_PIECE)
+        h, fin = rglru_reference(x[:, piece], r[:, piece], i[:, piece], lam,
+                                 h0=s)
+        hs.append(h)
+        s = None if fault == "reset_128" else fin
+    return torch.cat(hs, dim=1), fin
+
+
+def _faulty_rglru_scan(fault):
+    """``models.rglru._scan`` on the plain path with ``fault`` planted."""
+    def scan(cfg, xf, r, i, lam, h0=None):
+        return _faulty_rglru(fault, xf, r, i, lam, h0)
+    return scan
+
+
+def phase_rglru(out):
+    import torch
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import rglru_reference
+    cases = [dict(B=B, T=T, W=W, h0=h0, lam=lam)
+             for (B, T, W, h0, lam) in RG_CASES]
+    cases += [dict(B=1, T=T, W=4096, h0=True, lam="test", path=True)
+              for T in RG_PATH_T]
+    cases.append(dict(cases[-1], path=False, lam="griffin"))
+    rows = []
+    for n, c in enumerate(cases):
+        x, r, i, lv, s0 = _rglru_inputs(c["B"], c["T"], c["W"], c["h0"],
+                                        c["lam"], seed=200 + n)
+        h, fin = ops.rglru_fwd(x, r, i, lv, h0=s0)
+        hr, fr = rglru_reference(x, r, i, lv, h0=s0)
+        torch.cuda.synchronize()
+        err_h, ratio_h, ok_h = _rg_err(h, hr)
+        err_s, ratio_s, ok_s = _rg_err(fin, fr)
+        row = {k: c[k] for k in ("B", "T", "W", "h0", "lam")}
+        row.update(max_abs_err=err_h, max_abs_err_state=err_s,
+                   max_err_over_1_plus_abs=max(ratio_h, ratio_s),
+                   max_abs_h=float(hr.abs().max()), tol=RG_TOL,
+                   ok=ok_h and ok_s, path=c.get("path", False))
+        if row["path"]:
+            row["ms"] = cuda_ms(lambda: ops.rglru_fwd(x, r, i, lv, h0=s0))
+            row["device_ms"] = kernel_device_ms(
+                lambda: ops.rglru_fwd(x, r, i, lv, h0=s0), "rglru_fwd_kernel")
+            row["plain_ms"] = cuda_ms(lambda: rglru_reference(x, r, i, lv,
+                                                              h0=s0))
+            row["library_ms"] = None
+            row.update(rglru_bound(c["B"], c["T"], c["W"], c["h0"]))
+        if c["T"] == RG_TIMED_T:
+            # this check must pass the control and reject each fault
+            row["planted_faults"] = {}
+            for f in (RG_CONTROL,) + RG_FAULTS:
+                hf, ff = _faulty_rglru(f, x, r, i, lv, s0)
+                eh, qh, oh = _rg_err(hf, hr)
+                es, qs, os_ = _rg_err(ff, fr)
+                row["planted_faults"][f] = {
+                    "max_abs_err": eh, "max_abs_err_state": es,
+                    "max_err_over_1_plus_abs": max(qh, qs),
+                    "rejected": not (oh and os_)}
+                if row["planted_faults"][f]["rejected"] == (f == RG_CONTROL):
+                    row["ok"] = False
+        log("rglru_fwd " + json.dumps(row))
+        rows.append(row)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"RG-LRU kernel disagrees with plain version, "
+                             f"or its check misjudges a planted fault: "
+                             f"{bad}")
+    out["rglru_cases"] = rows
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -783,17 +1195,34 @@ PHASES = {
          lambda out: phase_serve(out, MAMBA)),
     11: ("mamba2-370m parity", lambda out: phase_parity(out, MAMBA)),
     12: ("mamba2-370m profile", lambda out: phase_profile(out, MAMBA)),
+    13: ("rglru kernel", phase_rglru),
+    14: ("recurrentgemma-9b model", lambda out: phase_model(out, RGEMMA)),
+    15: ("recurrentgemma-9b serve (main path)",
+         lambda out: phase_serve(out, RGEMMA)),
+    16: ("recurrentgemma-9b parity", lambda out: phase_parity(out, RGEMMA)),
+    17: ("recurrentgemma-9b profile",
+         lambda out: phase_profile(out, RGEMMA)),
 }
 
 
 def kernels_line(out):
+    """One entry per kernel.  ``launches`` sums the kernel's launches over
+    the main paths this run drove (each counted from 0 just before its
+    serving run), ``launches_by_path`` splits them by path; the numbers of
+    one timed shape stand in the entry, every shape is in ``--json``.
+    ``ms`` is the kernel's device time (``kernel_device_ms``);
+    ``events_ms`` is CUDA events around back-to-back calls, the host's
+    launch work included."""
     fa_rows = out.get("flash_attention_cases", [])
     ssd_rows = out.get("ssd_cases", [])
-    launches = out.get("main_path_launches", {})
+    rg_rows = out.get("rglru_cases", [])
+    by_path = out.get("main_path_launches", {})
     fa_timed = next((r for r in fa_rows if r["path"]
                      and (r["S"], r["window"]) == TIMED), None)
     ssd_timed = next((r for r in ssd_rows if r["path"]
                       and r["T"] == SSD_TIMED_T), None)
+    rg_timed = next((r for r in rg_rows if r["path"]
+                     and r["T"] == RG_TIMED_T), None)
     entries = []
     for name, source, replaces, rows, timed, tol, rule, keys in (
             ("flash_attention_fwd", FA_SOURCE, FA_REPLACES, fa_rows,
@@ -804,12 +1233,18 @@ def kernels_line(out):
              ssd_timed["tol"] if ssd_timed else None,
              f"|kernel - plain| <= {SSD_TOL} * max|plain| (tol is that "
              f"limit at the timed shape)",
-             ("B", "T", "H", "G", "N", "P", "chunk", "dtype"))):
+             ("B", "T", "H", "G", "N", "P", "chunk", "dtype")),
+            ("rglru_fwd", RG_SOURCE, RG_REPLACES, rg_rows, rg_timed, RG_TOL,
+             f"|kernel - plain| <= {RG_TOL} * (1 + |plain|)",
+             ("B", "T", "W", "h0", "lam"))):
         path_err = max((r["max_abs_err"] for r in rows if r["path"]),
                        default=None)
+        paths = {arch: n[name] for arch, n in by_path.items() if name in n}
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(name),
+            "replaces": replaces,
+            "launches": sum(paths.values()) if paths else None,
+            "launches_by_path": paths,
             "max_abs_err": path_err, "max_err": path_err, "tol": tol,
             "tol_rule": rule,
             "shape": None, "ms": None, "kernel_ms": None, "plain_ms": None,
@@ -817,13 +1252,17 @@ def kernels_line(out):
         }
         if timed is not None:
             entry.update(shape={k: timed[k] for k in keys},
-                         ms=timed["ms"], kernel_ms=timed["ms"],
+                         ms=timed["device_ms"], kernel_ms=timed["device_ms"],
+                         events_ms=timed["ms"],
                          plain_ms=timed["plain_ms"],
                          bound_ms=timed["bound_ms"],
                          bound_by=timed["bound_by"],
                          library_ms=timed["library_ms"])
         if name == "ssd_fwd":
             entry["library"] = "no single PyTorch call computes the SSD scan"
+        if name == "rglru_fwd":
+            entry["library"] = ("no single PyTorch call computes the RG-LRU "
+                                "recurrence")
         entries.append(entry)
     return {"kernels": entries}
 
@@ -848,6 +1287,8 @@ def main(argv=None) -> int:
         return 2
     out = {}
     for p in phases:
+        _free()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         title, fn = PHASES[p]
         log(f"== phase {p}: {title}")
@@ -857,7 +1298,10 @@ def main(argv=None) -> int:
             traceback.print_exc()
             log(f"== phase {p} FAILED")
             return 1
-        log(f"== phase {p} ok ({time.monotonic() - t0:.1f} s)")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out.setdefault("peak_memory_gib", {})[p] = peak
+        log(f"== phase {p} ok ({time.monotonic() - t0:.1f} s, peak "
+            f"{peak:.2f} GiB allocated)")
     line = kernels_line(out)
     out.update(line)
     if args.json:

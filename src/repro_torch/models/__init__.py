@@ -1,5 +1,5 @@
 """Model zoo of the PyTorch port: decoder-only LMs (the dense attention
-families and Mamba-2 so far)."""
+families, Mamba-2 and RecurrentGemma so far)."""
 from ..configs.config import MLACfg, ModelCfg, MoECfg, RGLRUCfg, SSMCfg
 from .lm import TransformerLM, build_segments
 

@@ -7,9 +7,10 @@ over it; here a Python loop walks it).  Parameter and cache trees keep the
 reference's paths and layouts, so :mod:`repro_torch.bridge` copies weights
 leaf for leaf.
 
-Mixers ported so far: ``attn`` and ``local`` (GQA, :mod:`.attention`) and
-``ssd`` (Mamba-2, :mod:`.mamba2`); a layer's MLP half is a dense MLP or,
-for ``mlp == "none"`` (Mamba-2), absent.  Other mixers, MoE, MTP and
+Mixers ported so far: ``attn`` and ``local`` (GQA, :mod:`.attention`),
+``ssd`` (Mamba-2, :mod:`.mamba2`) and ``rglru`` (the RecurrentGemma
+recurrent block, :mod:`.rglru`); a layer's MLP half is a dense MLP or, for
+``mlp == "none"`` (Mamba-2), absent.  Other mixers, MoE, MTP and
 encoder-decoder models raise NotImplementedError.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ from torch import nn
 
 from . import attention as attn
 from . import mamba2 as m2
+from . import rglru as rg
 from .common import (P, gelu, init_tree, layer_norm, rms_norm, silu, softcap,
                      stack_spec, tree_map)
 from ..configs.config import ModelCfg
@@ -101,6 +103,7 @@ MIXER_SPECS = {
     "attn": attn.gqa_specs,
     "local": attn.gqa_specs,
     "ssd": m2.mamba2_specs,
+    "rglru": rg.rglru_specs,
 }
 _MLPS = ("gated_silu", "gated_gelu", "gelu", "none")
 
@@ -130,6 +133,8 @@ def mixer_apply(kind: str, p, x, *, cfg: ModelCfg, positions, cache,
                               cache=cache, fresh_cache=fresh_cache)
     if kind == "ssd":
         return m2.mamba2_apply(p, x, cfg=cfg, cache=cache)
+    if kind == "rglru":
+        return rg.rglru_apply(p, x, cfg=cfg, cache=cache)
     raise NotImplementedError(_LATER.format(f"mixer {kind!r}"))
 
 
@@ -156,6 +161,8 @@ def mixer_cache_spec(cfg: ModelCfg, kind: str, batch: int, max_len: int):
         return attn.gqa_cache_spec(cfg, kind, batch, max_len)
     if kind == "ssd":
         return m2.mamba2_cache_spec(cfg, batch)
+    if kind == "rglru":
+        return rg.rglru_cache_spec(cfg, batch)
     raise NotImplementedError(_LATER.format(f"{kind!r} cache"))
 
 
@@ -200,7 +207,8 @@ def _index(tree, i: int):
 
 # ---------------------------------------------------------------- the model
 class TransformerLM(nn.Module):
-    """Decoder-only LM (the dense attention families and Mamba-2)."""
+    """Decoder-only LM (the dense attention families, Mamba-2 and
+    RecurrentGemma)."""
 
     def __init__(self, cfg: ModelCfg):
         super().__init__()
@@ -349,12 +357,19 @@ class TransformerLM(nn.Module):
         """Forward over a prompt from position 0; returns (last_logits,
         caches).  Attention caches must be empty (``init_cache``), else
         ValueError: attention then runs as causal self-attention over the
-        prompt, which is what attending over an empty cache is.  An SSD
-        cache needs no check: its scan continues from whatever state the
-        cache holds, as the reference's does."""
-        pos = [u["pos"].max() for seg in caches for u in seg if "pos" in u]
-        if pos and bool((torch.stack(pos) >= 0).any()):
+        prompt, which is what attending over an empty cache is.  A prompt
+        longer than an attention cache is refused too, before any layer
+        writes its cache.  An SSD or RG-LRU cache needs no check: its scan
+        continues from whatever state the cache holds, as the reference's
+        does."""
+        attn = [u for seg in caches for u in seg if "pos" in u]
+        if attn and bool((torch.stack([u["pos"].max() for u in attn])
+                          >= 0).any()):
             raise ValueError("prefill needs empty caches (init_cache)")
+        L = min((u["k"].shape[-3] for u in attn), default=None)
+        if L is not None and tokens.shape[1] > L:
+            raise ValueError(f"{tokens.shape[1]} tokens do not fit an "
+                             f"attention cache of length {L}")
         x = self.embed(tokens)
         h, caches, _ = self.forward(x, positions=self._positions(tokens),
                                     caches=caches, fresh_cache=True)

@@ -1,6 +1,7 @@
 """The compute half of the serving subsystem: batched decode slots with a
-per-slot cache lifecycle (K/V for attention layers, conv tail and state
-for SSD layers).
+per-slot cache lifecycle (K/V and positions for attention layers, conv
+tail and state for SSD layers, conv tail and float32 h for RG-LRU
+layers).
 
 The counterpart of ``repro.serve.engine``.  :class:`ServeEngine` owns the
 model, its parameters, and one decode cache of ``slots`` batch rows.  The
@@ -11,8 +12,8 @@ two operations the event layer drives:
   shapes match one slot of the batch cache) and return the first greedy
   token plus that cache.  It touches no shared decode state, so the event
   layer runs it concurrently with decode ticks.  On the card its
-  attention goes through the flash kernel and its SSD scan through the
-  SSD kernel.
+  attention goes through the flash kernel, its SSD scan through the SSD
+  kernel and its RG-LRU recurrence through the RG-LRU kernel.
 * :meth:`attach` / :meth:`step` — splice a prefilled cache into a batch
   slot and advance the whole batch one greedy token.  ``attach``
   overwrites *every* cache leaf of the slot, which is what makes slot
@@ -21,8 +22,8 @@ two operations the event layer drives:
 
 Tensors here are updated in place where the reference builds new arrays:
 ``attach`` copies the prefilled cache into the slot row
-(``index_copy_``) and the decode step writes K/V (or the SSD conv tail and
-state) into the batch cache.
+(``index_copy_``) and the decode step writes K/V (or the conv tail and the
+SSD state or RG-LRU h) into the batch cache.
 
 ``torch.inference_mode`` is thread-local and the event layer runs prefill
 and decode ticks on worker threads, so each method that touches tensors
@@ -67,7 +68,9 @@ def serving_cfg(cfg, max_len: int = DEFAULT_MAX_LEN):
 
 def _make_splice(model, slots: int):
     """``splice(caches, pcache, slot)`` copying the single-request cache
-    ``pcache`` over batch row ``slot`` of every cache leaf, in place.
+    ``pcache`` over batch row ``slot`` of every cache leaf, in place: K/V
+    and positions of attention layers, conv tails, SSD states and RG-LRU
+    h alike.
     Stacked-layer segments carry a leading ``layers`` dim, so the batch
     axis is per-segment: 1 when the segment repeats, else 0."""
     axes = [1 if r > 1 else 0 for (_, r) in model.segments]
@@ -156,8 +159,8 @@ class ServeEngine:
                pcache: Any) -> None:
         """Splice a prefilled request into ``slot``: every cache leaf of
         the slot is overwritten (K/V and pos markers of attention layers,
-        conv tail and state of SSD layers) — the per-slot cache reset on
-        admit."""
+        conv tail and state of SSD layers, conv tail and h of RG-LRU
+        layers) — the per-slot cache reset on admit."""
         with torch.inference_mode():
             self._splice(self.caches, pcache, slot)
         self.tokens[slot, 0] = first_token

@@ -27,7 +27,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for name in ("repro_torch.models.mamba2", "repro_torch.kernels.ssd.ops",
-             "repro_torch.kernels.ssd.ref"):
+             "repro_torch.kernels.ssd.ref", "repro_torch.models.rglru",
+             "repro_torch.kernels.rglru.ops",
+             "repro_torch.kernels.rglru.ref"):
     assert name in names, name
 """
 
@@ -38,7 +40,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 33      # configs, runtime, models, kernels, serve
+    assert n_modules >= 37      # configs, runtime, models, kernels, serve
 
 
 CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
@@ -49,6 +51,8 @@ ENTRY_POINTS = {
     "run_serve": lambda: run_serve(load=LoadSpec(requests=1)),
     "run_serve_mamba2": lambda: run_serve(arch="mamba2-370m", reduced=False,
                                           load=LoadSpec(requests=1)),
+    "run_serve_recurrentgemma": lambda: run_serve(
+        arch="recurrentgemma-9b", reduced=False, load=LoadSpec(requests=1)),
     "run_sequential": lambda: run_sequential(CFG, []),
 }
 

@@ -158,3 +158,73 @@ def test_ssd_kernel_refuses_unsupported_shapes(cuda):
     with pytest.raises(ValueError, match="head dim"):
         wide = torch.zeros(1, 64, 2, 72, device=cuda)
         tssd.ssd_fwd(wide, dt, a_log, b, c, chunk=32)
+
+
+# (B, T, W, h0, lam): the reference's RG_CASES (drawn at B=2), ragged T,
+# an initial state, and the serving path's shapes (recurrentgemma-9b
+# prefill: B=1, width 4096); lam as the reference's kernel test draws it,
+# or as Griffin's init does (long memory: a = exp(-8 softplus(lam)) in
+# [0.9, 0.999]), under which h0 and every carry reach the last step
+RG_CASES = [
+    (2, 128, 128, False, "test"),
+    (2, 256, 256, False, "test"),
+    (2, 128, 512, False, "test"),
+    (2, 512, 128, False, "test"),
+    (2, 1, 96, True, "test"),
+    (2, 39, 96, True, "griffin"),
+    (2, 100, 200, True, "griffin"),
+    (1, 100, 4096, True, "test"),
+    (1, 511, 4096, True, "test"),
+    (1, 511, 4096, True, "griffin"),
+]
+# the reference's RG-LRU tolerance: |kernel - plain| <= 2e-4 (1 + |plain|)
+RG_TOL = 2e-4
+
+
+def _rg_inputs(B, T, W, h0, lam, device):
+    rng = np.random.default_rng(T * 13 + W)
+    sig = lambda a: 1.0 / (1.0 + np.exp(-a))             # noqa: E731
+    x = rng.standard_normal((B, T, W), dtype=np.float32)
+    r = sig(rng.standard_normal((B, T, W), dtype=np.float32))
+    i = sig(rng.standard_normal((B, T, W), dtype=np.float32))
+    if lam == "griffin":
+        u = rng.uniform(0.9, 0.999, W)
+        lv = np.log(np.expm1(-np.log(u) / 8)).astype(np.float32)
+    else:
+        lv = np.abs(rng.standard_normal(W, dtype=np.float32)) + 0.2
+    arrs = [x, r, i, lv]
+    if h0:
+        arrs.append(rng.standard_normal((B, W), dtype=np.float32))
+    out = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in arrs]
+    return out if h0 else out + [None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,W,h0,lam", RG_CASES)
+def test_rglru_kernel_matches_plain(cuda, B, T, W, h0, lam):
+    from repro_torch.kernels.rglru import ops as trg
+    from repro_torch.kernels.rglru.ref import rglru_reference
+    x, r, i, lv, s0 = _rg_inputs(B, T, W, h0, lam, cuda)
+    before = trg.kernel_launches
+    h, fin = trg.rglru_fwd(x, r, i, lv, h0=s0)
+    torch.cuda.synchronize()
+    assert trg.kernel_launches == before + 1
+    hr, fr = rglru_reference(x, r, i, lv, h0=s0)
+    assert h.dtype == torch.float32 and h.shape == (B, T, W)
+    for got, want in ((h, hr), (fin, fr)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RG_TOL, atol=RG_TOL)
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_refuses_unsupported_inputs(cuda):
+    from repro_torch.kernels.rglru import ops as trg
+    x, r, i, lv, s0 = _rg_inputs(1, 16, 64, True, "test", cuda)
+    with pytest.raises(TypeError, match="float32"):
+        trg.rglru_fwd(x.bfloat16(), r, i, lv)
+    with pytest.raises(ValueError, match="stride 1"):
+        trg.rglru_fwd(x.transpose(1, 2), r.transpose(1, 2),
+                      i.transpose(1, 2), torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError, match="h0"):
+        trg.rglru_fwd(x, r, i, lv, h0=s0[:, :32])
