@@ -15,7 +15,8 @@ flash attention on its local layers), each at full width and depth:
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
 2. build: every CUDA kernel from the sources in the checkout, all ``nvcc``
-   at once, with each kernel's registers and spills;
+   at once, with each kernel's registers and spills and both SSD kernels'
+   shared memory; the tensor-core SSD kernel must not spill;
 3. the flash kernel against its plain PyTorch version on the card, on the
    reference's test cases, ragged tails and the serving paths' shapes
    (gemma3-1b's and recurrentgemma-9b's), with CUDA-event times of the
@@ -32,19 +33,23 @@ flash attention on its local layers), each at full width and depth:
 7. where gemma3-1b's serving time goes: one bf16 prefill and one 4-slot
    decode step, the device's kernel time (``torch.profiler``) against the
    host clock;
-8. the SSD kernel against its plain version on the card: the reference's
-   test cases, ragged tails, a nonzero initial state (final state compared
-   too) and the serving path's shapes, timed as in phase 3 (no single
-   PyTorch call computes this function, so it has no library time); the
-   same check must reject faults planted in the plain scan;
+8. the SSD kernels against their plain version on the card: the
+   reference's test cases, ragged tails, a nonzero initial state (final
+   state compared too) and the serving path's shapes, each row with the
+   variant it launched (the bf16 tensor-core kernel on the serving path's
+   shapes, the SIMT kernel for float32), timed as in phase 3 beside the
+   SIMT kernel on the same inputs (no single PyTorch call computes this
+   function, so it has no library time); the same check must reject
+   faults planted in the plain scan;
 9. mamba2-370m: prefill through the SSD kernel against prefill through the
    plain scan, float32 (gated, with the reference's init and again with
    Mamba-2's init of a_log and dt_bias) and bfloat16 (reported); the
    float32 gate must reject faults planted in the plain scan;
 10. mamba2-370m's main path: event-driven serving in bf16, counted as in
-    phase 5;
+    phase 5, every SSD launch the tensor-core variant;
 11. float32 serving of mamba2-370m against the sequential baseline;
-12. where mamba2-370m's serving time goes, as in phase 7;
+12. where mamba2-370m's serving time goes, as in phase 7, with its SSD
+    launches by variant;
 13. the RG-LRU kernel against its plain version on the card: the
     reference's test cases, ragged T, a nonzero initial state (final state
     compared too), the serving path's shapes timed as in phase 3 (no single
@@ -135,6 +140,9 @@ SSD_TIMED_T = 511
 # chunk of products cancel in places, so their rounding scales with the
 # output's largest magnitude
 SSD_TOL = 1e-4
+# the device function of each SSD kernel variant, as the profiler names it
+# (neither name holds the other)
+SSD_ENTRY = {"mma_bf16": "ssd_mma_bf16_kernel", "simt": "ssd_fwd_kernel"}
 
 GEMMA, MAMBA, RGEMMA = "gemma3-1b", "mamba2-370m", "recurrentgemma-9b"
 # the kernel each kind of layer launches once a prefill
@@ -325,7 +333,8 @@ def phase_build(out):
         log(f"-- nvcc {name}.cu\n{text.strip()}")
     log(f"build: {secs:.1f} s for {list(_build.SOURCES)}")
     ptxas = {n: _ptxas_summary(t) for n, t in _build.build_log.items()}
-    smem = ssd_ops.smem_bytes(128, 64, 128)
+    smem = {v: ssd_ops.smem_bytes(128, 64, 128, kernel=v)
+            for v in ssd_ops.VARIANTS}
     log("ssd_fwd ptxas " + json.dumps({
         "kernels": ptxas.get("ssd_fwd"),
         "dynamic_smem_bytes_at_N128_P64_chunk128": smem}))
@@ -333,6 +342,12 @@ def phase_build(out):
     out["build_s"] = secs
     out["ptxas"] = ptxas
     out["ssd_smem_bytes"] = smem
+    mma = [r for r in ptxas.get("ssd_fwd") or []
+           if SSD_ENTRY["mma_bf16"] in r["entry"]]
+    if ptxas.get("ssd_fwd") is not None and (
+            len(mma) != 1 or mma[0]["spill_store_bytes"]):
+        raise AssertionError(f"the tensor-core SSD kernel is missing from "
+                             f"the build log or spills: {mma}")
 
 
 def _fa_inputs(S, H, KH, D, dtype, B, seed, model_layout):
@@ -737,12 +752,14 @@ def phase_serve(out, arch):
     torch.cuda.synchronize()
     launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
     plain = {k: ops.plain_calls for k, ops in all_ops.items()}
+    ssd_by_variant = dict(all_ops["ssd_fwd"].launches_by_variant)
     r, summary = res["result"], res["summary"]
     log("serve " + json.dumps({
         "arch": arch, "card": out.get("card"), "dtype": cfg.dtype,
         "reading": "smoke, 8 requests", **summary,
         "steps": r["steps"], "tick_execs": r["tick_execs"],
         "prefills": r["prefills"], "kernel_launches": launches,
+        "ssd_launches_by_variant": ssd_by_variant,
         "plain_calls": plain}))
     checks = {
         "served == 8": r["served"] == load.requests,
@@ -754,6 +771,9 @@ def phase_serve(out, arch):
         "no other kernel launched": not any(
             n for k, n in launches.items() if k not in expected),
         "plain_calls == 0": not any(plain.values()),
+        # the serving path's bf16 views take the tensor-core SSD kernel
+        "every ssd_fwd launch mma_bf16":
+            ssd_by_variant["mma_bf16"] == launches["ssd_fwd"],
         "tokens in vocab": all(0 <= t < cfg.vocab for rec in r["records"]
                                for t in rec["tokens"]),
     }
@@ -762,7 +782,10 @@ def phase_serve(out, arch):
         raise AssertionError(f"serve checks failed: {failed}")
     out[f"serve_{arch}"] = {"summary": summary, "steps": r["steps"],
                             "kernel_launches": launches,
+                            "ssd_launches_by_variant": ssd_by_variant,
                             "plain_calls": plain}
+    if "ssd_fwd" in expected:
+        out["ssd_main_path_by_variant"] = ssd_by_variant
     out.setdefault("main_path_launches", {})[arch] = {
         name: launches[name] for name in expected}
 
@@ -872,7 +895,9 @@ def phase_profile(out, arch):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.serve import ServeEngine
+    ssd_ops.reset_counts()
     eng = ServeEngine(ARCHS[arch].cfg, slots=4, max_len=MAX_LEN,
                       device="cuda")
     prompt = list(range(1, 385))
@@ -896,6 +921,15 @@ def phase_profile(out, arch):
         log(f"profile {arch} {name} " + json.dumps(res[name]))
     if not res["prefill_384"]["device_ms"] > 0:
         raise AssertionError("the profiler saw no device time")
+    if "ssd" in ARCHS[arch].cfg.layer_kinds():
+        # the SSD launches of this phase (warm-up, timed and profiled
+        # calls), by variant
+        res["ssd_launches_by_variant"] = dict(ssd_ops.launches_by_variant)
+        log(f"profile {arch} ssd_launches_by_variant "
+            + json.dumps(res["ssd_launches_by_variant"]))
+        if ssd_ops.launches_by_variant["simt"]:
+            raise AssertionError("a bf16 prefill launched the SIMT SSD "
+                                 "kernel")
     if arch == RGEMMA:
         res["float32_gates"] = _gate_cost(
             eng, res["decode_step_b4"]["device_ms"])
@@ -990,28 +1024,40 @@ def phase_ssd(out):
         x, dt, a_log, b, cc, s0 = _ssd_inputs(
             c["B"], c["T"], c["H"], c["G"], c["N"], c["P"], c["dtype"],
             c["init"], seed=100 + n, dt_shift=c.get("dt_shift", 0.0))
+        before = dict(ops.launches_by_variant)
         y, fin = ops.ssd_fwd(x, dt, a_log, b, cc, chunk=c["chunk"],
                              init_state=s0)
         yr, fr = ssd_padded_reference(x, dt, a_log, b, cc, chunk=c["chunk"],
                                       init_state=s0)
         torch.cuda.synchronize()
+        ran = [v for v, k in ops.launches_by_variant.items()
+               if k != before[v]]
         err_y, lim_y, ok_y = _scaled_err(y, yr)
         err_s, lim_s, ok_s = _scaled_err(fin, fr)
         row = {k: c[k] for k in ("B", "T", "H", "G", "N", "P", "chunk",
                                  "dtype", "init")}
         row["dt_shift"] = c.get("dt_shift", 0.0)
-        row.update(max_abs_err=err_y, max_abs_err_state=err_s,
+        chosen = ops.variant(x.dtype, c["N"], c["P"], c["chunk"],
+                             ops.aligned(x, b, cc))
+        row.update(variant=ran[0] if len(ran) == 1 else ran,
+                   max_abs_err=err_y, max_abs_err_state=err_s,
                    max_abs_y=float(yr.abs().max()), tol=lim_y,
-                   tol_state=lim_s, ok=ok_y and ok_s,
+                   tol_state=lim_s,
+                   ok=ok_y and ok_s and ran == [chosen],
                    path=c.get("path", False))
+        if row["path"] and row["variant"] != "mma_bf16":
+            row["ok"] = False              # the serving path's case
         if row["path"]:
             kw = dict(chunk=c["chunk"], init_state=s0)
-            row["ms"] = cuda_ms(lambda: ops.ssd_fwd(x, dt, a_log, b, cc,
-                                                    **kw))
-            (row["device_ms"],
-             row["device_launches_recorded"]) = kernel_device_ms(
-                lambda: ops.ssd_fwd(x, dt, a_log, b, cc, **kw),
-                "ssd_fwd_kernel")
+            # the chosen kernel, then the SIMT kernel on the same inputs
+            for key, v in (("", chosen), ("simt_", "simt")):
+                row[key + "ms"] = cuda_ms(lambda: ops.ssd_fwd(
+                    x, dt, a_log, b, cc, kernel=v, **kw))
+                (row[key + "device_ms"],
+                 row[key + "device_launches_recorded"]) = kernel_device_ms(
+                    lambda: ops.ssd_fwd(x, dt, a_log, b, cc, kernel=v,
+                                        **kw),
+                    SSD_ENTRY[v])
             row["plain_ms"] = cuda_ms(lambda: ssd_padded_reference(
                 x, dt, a_log, b, cc, **kw))
             row["library_ms"] = None
@@ -1252,6 +1298,14 @@ def kernels_line(out):
                          library_ms=timed["library_ms"])
         if name == "ssd_fwd":
             entry["library"] = "no single PyTorch call computes the SSD scan"
+            # the variant the timed shape launched, the main path's
+            # launches by variant, and the SIMT kernel on the same inputs
+            entry["variant"] = timed["variant"] if timed else None
+            entry["launches_by_variant"] = out.get(
+                "ssd_main_path_by_variant")
+            entry["simt_ms"] = timed.get("simt_ms") if timed else None
+            entry["simt_device_ms"] = (timed.get("simt_device_ms")
+                                       if timed else None)
         if name == "rglru_fwd":
             entry["library"] = ("no single PyTorch call computes the RG-LRU "
                                 "recurrence")

@@ -1,11 +1,19 @@
 """Public wrapper of the SSD chunked-scan kernel.
 
 The counterpart of ``repro.kernels.ssd.ops``.  On CUDA tensors :func:`ssd`
-launches the hand-written Hopper kernel (``csrc/ssd_fwd.cu``) on the
-current stream and counts the launch in :data:`kernel_launches`; on CPU
-tensors it runs the plain version (:mod:`.ref`) and counts
-:data:`plain_calls`.  There is no fallback between the two: a CUDA call the
-kernel does not take raises.
+launches a hand-written Hopper kernel (``csrc/ssd_fwd.cu``) on the
+current stream and counts the launch in :data:`kernel_launches` and
+:data:`launches_by_variant`; on CPU tensors it runs the plain version
+(:mod:`.ref`) and counts :data:`plain_calls`.  There is no fallback between
+the two: a CUDA call the kernel does not take raises.
+
+Two kernels compute the scan, and :func:`variant` picks one from the
+inputs alone: ``"mma_bf16"`` (bf16 tensor cores, float32 operands split
+into two bf16 halves) for bf16 inputs whose N and P are multiples of 16,
+whose chunk is a multiple of 32 and whose pointers and row strides are
+16-byte aligned, the serving path's case; ``"simt"`` (float32 FMAs) for
+every other call, float32 included.  A launch that fails raises; no other
+variant is tried.
 
 Beyond the reference's wrapper it takes any T (the kernel masks a ragged
 tail; the plain version is fed zeros past T, with dt = 0), an initial state
@@ -32,9 +40,16 @@ from .ref import ssd_padded_reference
 kernel_launches = 0
 #: calls answered by the plain version (CPU tensors)
 plain_calls = 0
+VARIANTS = ("mma_bf16", "simt")
+#: kernel launches in this process by variant
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 _count_lock = threading.Lock()
 
 CHUNKS = (32, 64, 96, 128)
+#: the tensor-core kernel's rule, as its C entry ``ssd_fwd_mma`` checks it:
+#: N and P multiples of the MMA tile (16), the chunk a multiple of 32 (its
+#: running sum gives each of a warp's 32 lanes chunk / 32 steps)
+MMA_TILE, MMA_CHUNK_MULTIPLE = 16, 32
 MAX_STATE = 128          # N: a multiple of 8 up to 128
 MAX_HEAD_DIM = 64        # P: a multiple of 4 up to 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,15 +60,41 @@ def reset_counts() -> None:
     with _count_lock:
         kernel_launches = 0
         plain_calls = 0
+        for v in VARIANTS:
+            launches_by_variant[v] = 0
 
 
-def _count(kernel: bool) -> None:
+def _count(kernel: Optional[str]) -> None:
+    """One kernel launch of variant ``kernel``, or (None) one plain call."""
     global kernel_launches, plain_calls
     with _count_lock:
         if kernel:
             kernel_launches += 1
+            launches_by_variant[kernel] += 1
         else:
             plain_calls += 1
+
+
+def aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's pointer and its strides along the batch, step
+    and head axes are multiples of 16 bytes (the tensor-core kernel's
+    16-byte ``cp.async`` loads of whole rows)."""
+    return all(t.data_ptr() % 16 == 0
+               and all(t.stride(i) * t.element_size() % 16 == 0
+                       for i in range(3))
+               for t in tensors)
+
+
+def variant(dtype: torch.dtype, N: int, P: int, chunk: int,
+            aligned: bool) -> str:
+    """The kernel a call launches, from its inputs alone: ``"mma_bf16"``
+    for bf16 with N and P multiples of :data:`MMA_TILE`, the chunk a
+    multiple of :data:`MMA_CHUNK_MULTIPLE` and ``aligned`` pointers and row
+    strides (see :func:`aligned`), else ``"simt"``."""
+    if (dtype == torch.bfloat16 and N % MMA_TILE == 0 and P % MMA_TILE == 0
+            and chunk % MMA_CHUNK_MULTIPLE == 0 and aligned):
+        return "mma_bf16"
+    return "simt"
 
 
 def _lib() -> ctypes.CDLL:
@@ -65,23 +106,37 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_fwd.restype = ctypes.c_int
         lib.ssd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_error_string.restype = ctypes.c_char_p
-        lib.ssd_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.ssd_fwd_smem_bytes.restype = ctypes.c_int
+        lib.ssd_fwd_mma.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.ssd_fwd_mma.restype = ctypes.c_int
+        for f in (lib.ssd_fwd_smem_bytes, lib.ssd_fwd_mma_smem_bytes):
+            f.argtypes = [ctypes.c_int] * 3
+            f.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(N: int, P: int, chunk: int) -> int:
-    """Dynamic shared memory (bytes) a launch at these sizes asks for."""
-    return _lib().ssd_fwd_smem_bytes(N, P, chunk)
+def smem_bytes(N: int, P: int, chunk: int, kernel: str = "simt") -> int:
+    """Dynamic shared memory (bytes) a launch of ``kernel`` (a variant) at
+    these sizes asks for."""
+    lib = _lib()
+    f = (lib.ssd_fwd_mma_smem_bytes if kernel == "mma_bf16"
+         else lib.ssd_fwd_smem_bytes)
+    return f(N, P, chunk)
 
 
 def ssd_fwd(x, dt, a_log, b, c, *, chunk: int,
-            init_state: Optional[torch.Tensor] = None):
-    """Launch the kernel.  x: (B, T, H, P) and b, c: (B, T, G, N), CUDA
-    tensors of one dtype (float32 or bfloat16) with a unit-stride last axis
-    and any other strides; dt: (B, T, H) float32; a_log: (H,) float32;
-    init_state: (B, H, N, P) float32 contiguous, or None for zeros.
-    Returns (y (B, T, H, P) float32, final state (B, H, N, P) float32)."""
+            init_state: Optional[torch.Tensor] = None,
+            kernel: Optional[str] = None):
+    """Launch the kernel :func:`variant` picks.  x: (B, T, H, P) and b, c:
+    (B, T, G, N), CUDA tensors of one dtype (float32 or bfloat16) with a
+    unit-stride last axis and any other strides; dt: (B, T, H) float32;
+    a_log: (H,) float32; init_state: (B, H, N, P) float32 contiguous, or
+    None for zeros.  Returns (y (B, T, H, P) float32, final state
+    (B, H, N, P) float32).
+
+    ``kernel`` names a variant instead, to time ``"simt"`` against the
+    tensor cores on the same inputs; the model path never passes it."""
     if not all(t.is_cuda and t.device == x.device
                for t in (x, dt, a_log, b, c)):
         devs = [str(t.device) for t in (x, dt, a_log, b, c)]
@@ -127,6 +182,13 @@ def ssd_fwd(x, dt, a_log, b, c, *, chunk: int,
                          f"({B}, {H}, {N}, {Pd}) tensor on {x.device}, got "
                          f"{tuple(init_state.shape)} {init_state.dtype} "
                          f"{init_state.device}")
+    chosen = variant(x.dtype, N, Pd, chunk, aligned(x, b, c))
+    if kernel is None:
+        kernel = chosen
+    elif kernel not in VARIANTS or (kernel == "mma_bf16"
+                                    and chosen != kernel):
+        raise ValueError(f"ssd_fwd: kernel {kernel!r} does not take these "
+                         f"inputs (they take {chosen!r})")
     y = torch.empty((B, T, H, Pd), dtype=torch.float32, device=x.device)
     fin = torch.empty((B, H, N, Pd), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 15)(
@@ -134,16 +196,20 @@ def ssd_fwd(x, dt, a_log, b, c, *, chunk: int,
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_fwd(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(),
-            init_state.data_ptr() if init_state is not None else None,
-            y.data_ptr(), fin.data_ptr(),
-            strides, B, T, H, G, N, Pd, int(chunk), _DTYPES[x.dtype], stream)
+        args = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                c.data_ptr(),
+                init_state.data_ptr() if init_state is not None else None,
+                y.data_ptr(), fin.data_ptr(),
+                strides, B, T, H, G, N, Pd, int(chunk))
+        if kernel == "mma_bf16":
+            rc = lib.ssd_fwd_mma(*args, stream)
+        else:
+            rc = lib.ssd_fwd(*args, _DTYPES[x.dtype], stream)
     if rc != 0:
         msg = lib.ssd_error_string(rc).decode()
-        raise RuntimeError(f"ssd_fwd launch failed ({rc}): {msg}")
-    _count(kernel=True)
+        raise RuntimeError(f"ssd_fwd ({kernel}) launch failed ({rc}): "
+                           f"{msg}")
+    _count(kernel)
     return y, fin
 
 
@@ -155,7 +221,7 @@ def _forward(x, dt, a_log, b, c, chunk, init_state):
     if x.device.type == "cpu":
         out = ssd_padded_reference(x, dt, a_log, b, c, chunk=chunk,
                                    init_state=init_state)
-        _count(kernel=False)
+        _count(None)
         return out
     raise ValueError(f"ssd: no kernel for device {x.device}")
 

@@ -160,6 +160,76 @@ def test_ssd_kernel_refuses_unsupported_shapes(cuda):
         tssd.ssd_fwd(wide, dt, a_log, b, c, chunk=32)
 
 
+# the tensor-core variant on bf16 inputs, B=2: (T, H, G, N, P, chunk,
+# init_state), covering T in {1, 17, 129, 511}, P in {16, 32, 64}, N in
+# {16, 64, 128}, every chunk, one and two groups, with and without an
+# initial state; held to the plain version at the same SSD_TOL
+MMA_CASES = [
+    (1, 4, 1, 128, 64, 128, True),
+    (1, 2, 1, 64, 16, 32, False),
+    (17, 4, 2, 16, 16, 32, False),
+    (17, 2, 1, 64, 64, 64, True),
+    (129, 4, 1, 64, 32, 64, True),
+    (129, 4, 2, 128, 32, 96, False),
+    (129, 2, 2, 16, 64, 128, True),
+    (511, 4, 2, 128, 64, 128, False),
+    (511, 2, 1, 64, 16, 96, True),
+    (511, 4, 1, 16, 32, 32, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,H,G,N,P,chunk,init", MMA_CASES)
+def test_ssd_mma_bf16_matches_plain(cuda, T, H, G, N, P, chunk, init):
+    x, dt, a_log, b, c, s0 = _ssd_inputs(2, T, H, G, N, P, "bfloat16", init,
+                                         cuda)
+    assert tssd.variant(x.dtype, N, P, chunk,
+                        tssd.aligned(x, b, c)) == "mma_bf16"
+    before = tssd.launches_by_variant["mma_bf16"]
+    y, fin = tssd.ssd_fwd(x, dt, a_log, b, c, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert tssd.launches_by_variant["mma_bf16"] == before + 1
+    yr, fr = tssd_ref.ssd_padded_reference(x, dt, a_log, b, c, chunk=chunk,
+                                           init_state=s0)
+    _close_scaled(y, yr, SSD_TOL)
+    _close_scaled(fin, fr, SSD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,H,G,N,P,chunk,init",
+                         [MMA_CASES[0], MMA_CASES[5], MMA_CASES[7]])
+def test_ssd_float32_launches_simt(cuda, T, H, G, N, P, chunk, init):
+    x, dt, a_log, b, c, s0 = _ssd_inputs(2, T, H, G, N, P, "float32", init,
+                                         cuda)
+    before = dict(tssd.launches_by_variant)
+    y, fin = tssd.ssd_fwd(x, dt, a_log, b, c, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert tssd.launches_by_variant == dict(before,
+                                            simt=before["simt"] + 1)
+    yr, fr = tssd_ref.ssd_padded_reference(x, dt, a_log, b, c, chunk=chunk,
+                                           init_state=s0)
+    _close_scaled(y, yr, SSD_TOL)
+    _close_scaled(fin, fr, SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_ssd_named_variant(cuda):
+    """``kernel="simt"`` runs the SIMT kernel on bf16 inputs the tensor
+    cores would take; ``"mma_bf16"`` on float32 inputs raises."""
+    x, dt, a_log, b, c, s0 = _ssd_inputs(1, 129, 4, 1, 64, 32, "bfloat16",
+                                         True, cuda)
+    before = tssd.launches_by_variant["simt"]
+    y, fin = tssd.ssd_fwd(x, dt, a_log, b, c, chunk=64, init_state=s0,
+                          kernel="simt")
+    assert tssd.launches_by_variant["simt"] == before + 1
+    yr, fr = tssd_ref.ssd_padded_reference(x, dt, a_log, b, c, chunk=64,
+                                           init_state=s0)
+    _close_scaled(y, yr, SSD_TOL)
+    _close_scaled(fin, fr, SSD_TOL)
+    with pytest.raises(ValueError, match="kernel"):
+        tssd.ssd_fwd(x.float(), dt, a_log, b.float(), c.float(), chunk=64,
+                     kernel="mma_bf16")
+
 # (B, T, W, h0, lam): the reference's RG_CASES (drawn at B=2), ragged T,
 # an initial state, and the serving path's shapes (recurrentgemma-9b
 # prefill: B=1, width 4096); lam as the reference's kernel test draws it,

@@ -228,3 +228,180 @@ def test_launch_counter_loses_no_update_under_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert tssd.plain_calls == before + n_threads * n_calls
+
+
+# ---------------------------------------------- the tensor-core variant
+# The CUDA kernel ``ssd_mma_bf16_kernel`` runs its four products on bf16
+# tensor cores with float32 sums.  x, b and c are bf16 inputs, exact there;
+# att, S_prev and w * x are float32, and each enters as hi = bf16(v) plus
+# lo = bf16(v - hi).  _mma_emulation repeats that rounding in plain torch
+# (bf16 products are exact in float32), so these tests hold the design's
+# numerics to the kernel gate of chip_smoke.py (1e-4 * max|y|, and
+# max|state|) here.  They check the rounding argument, not the kernel: what
+# holds the kernel is the card-only test_ssd_mma_bf16_matches_plain in
+# test_torch_kernels_gpu.py and chip_smoke.py's phase 8.
+MMA_TOL = 1e-4
+
+
+def _hilo(v, split):
+    hi = v.bfloat16().float()
+    return hi, ((v - hi).bfloat16().float() if split
+                else torch.zeros_like(v))
+
+
+def _mma_emulation(x, dt, a_log, b, c, *, chunk, init_state=None,
+                   split=True):
+    """(y, final state) as the tensor-core kernel rounds them: ``split``
+    False rounds each float32 operand once to bf16 instead."""
+    B, T, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    pad = (-T) % chunk
+    x, b, c = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+               for t in (x, b, c))
+    dt = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    b, c = (torch.repeat_interleave(t, H // G, dim=2) for t in (b, c))
+    A = -torch.exp(a_log.float())
+    s = (init_state.float() if init_state is not None
+         else torch.zeros((B, H, N, P)))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ys = []
+    for t0 in range(0, T + pad, chunk):
+        xc, bc, cc, dc = (t[:, t0:t0 + chunk] for t in (x, b, c, dt))
+        cum = torch.cumsum(dc * A, dim=1)                      # (B, Q, H)
+        g = torch.einsum("bihn,bjhn->bhij", cc, bc)
+        seg = (cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
+        att = torch.where(mask, g * torch.exp(torch.where(mask, seg, 0.0))
+                          * dc.permute(0, 2, 1)[:, :, None, :], 0.0)
+        y = sum(torch.einsum("bhij,bjhp->bihp", a, xc)
+                for a in _hilo(att, split))
+        inter = sum(torch.einsum("bihn,bhnp->bihp", cc, sp)
+                    for sp in _hilo(s, split))
+        ys.append(y + torch.exp(cum)[..., None] * inter)
+        w = torch.exp(cum[:, -1:] - cum) * dc                  # (B, Q, H)
+        s = torch.exp(cum[:, -1])[:, :, None, None] * s + sum(
+            torch.einsum("bjhn,bjhp->bhnp", bc, wx)
+            for wx in _hilo(w[..., None] * xc, split))
+    return torch.cat(ys, dim=1)[:, :T], s
+
+
+def _gate_ratio(out, ref):
+    """max|out - ref| over the gate's limit MMA_TOL * max|ref|."""
+    limit = MMA_TOL * max(1.0, float(ref.abs().max()))
+    return float((out - ref).abs().max()) / limit
+
+
+def _mma_inputs(T, H, G, N, P, *, init, dt_shift=0.0, seed=0, B=1):
+    """numpy-seeded bf16 x, b, c, softplus dt (shifted by ``dt_shift``: at
+    -4 dt ~ 0.02 and the state carries across chunks), a_log and an
+    optional initial state."""
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.from_numpy(a).bfloat16()             # noqa: E731
+    x = bf(rng.standard_normal((B, T, H, P), dtype=np.float32))
+    b = bf(rng.standard_normal((B, T, G, N), dtype=np.float32))
+    c = bf(rng.standard_normal((B, T, G, N), dtype=np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, T, H), dtype=np.float32)) + dt_shift)
+    a_log = torch.from_numpy(rng.standard_normal(H, dtype=np.float32) * 0.5)
+    s0 = (torch.from_numpy(rng.standard_normal((B, H, N, P),
+                                               dtype=np.float32))
+          if init else None)
+    return x, dt, a_log, b, c, s0
+
+
+# (T, H, G, N, P, chunk, init, dt_shift); the serving path's widths are
+# N=128, P=64, chunk 128
+MMA_CASES = [
+    (1, 4, 1, 128, 64, 128, True, 0.0),
+    (100, 4, 2, 64, 32, 64, False, 0.0),
+    (100, 4, 1, 128, 64, 128, True, 0.0),
+    (300, 4, 1, 128, 64, 128, True, 0.0),
+    (300, 4, 1, 128, 64, 128, False, 0.0),
+    (300, 4, 2, 32, 16, 64, True, 0.0),
+    (300, 2, 2, 64, 64, 64, False, 0.0),
+    (300, 4, 1, 128, 64, 128, True, -4.0),
+]
+
+
+@pytest.mark.parametrize("T,H,G,N,P,chunk,init,dt_shift", MMA_CASES)
+def test_split_emulation_within_kernel_gate(T, H, G, N, P, chunk, init,
+                                            dt_shift):
+    """The hi/lo split keeps the tensor-core variant's y and final state
+    within 1e-4 * max|.| of the plain version on the same bf16 inputs."""
+    x, dt, a_log, b, c, s0 = _mma_inputs(T, H, G, N, P, init=init,
+                                         dt_shift=dt_shift,
+                                         seed=T + N + init)
+    yr, fr = tref.ssd_padded_reference(x, dt, a_log, b, c, chunk=chunk,
+                                       init_state=s0)
+    ye, fe = _mma_emulation(x, dt, a_log, b, c, chunk=chunk, init_state=s0)
+    assert ye.shape == yr.shape and fe.shape == fr.shape
+    assert _gate_ratio(ye, yr) <= 1.0
+    assert _gate_ratio(fe, fr) <= 1.0
+
+
+@pytest.mark.parametrize("dt_shift", [0.0, -4.0])
+def test_single_bf16_rounding_fails_kernel_gate(dt_shift):
+    """The control: att, S_prev and w * x each rounded once to bf16 put y
+    past the same gate at the serving widths (N=128, P=64, chunk 128), so
+    the split is what keeps the kernel within it."""
+    x, dt, a_log, b, c, s0 = _mma_inputs(300, 4, 1, 128, 64, init=True,
+                                         dt_shift=dt_shift, seed=11)
+    yr, _ = tref.ssd_padded_reference(x, dt, a_log, b, c, chunk=128,
+                                      init_state=s0)
+    ye, _ = _mma_emulation(x, dt, a_log, b, c, chunk=128, init_state=s0,
+                           split=False)
+    assert _gate_ratio(ye, yr) > 1.0
+
+
+def _xbc_views(T, H, G, N, P, dtype, *, offset=0, extra=0):
+    """x, b, c as views of one (1, T, offset + H*P + 2*G*N + extra)
+    buffer, as the model slices its conv output."""
+    width = offset + H * P + 2 * G * N + extra
+    buf = torch.zeros((1, T, width), dtype=dtype)
+    o = offset
+    x = buf[..., o:o + H * P].reshape(1, T, H, P)
+    b = buf[..., o + H * P:o + H * P + G * N].reshape(1, T, G, N)
+    c = buf[..., o + H * P + G * N:o + H * P + 2 * G * N].reshape(1, T, G, N)
+    return x, b, c
+
+
+def test_variant_by_dtype_and_shape():
+    """bf16 with N and P multiples of 16 and the chunk a multiple of 32 (the
+    C entry's own rule) takes the tensor cores; float32, and other sizes,
+    take the SIMT kernel."""
+    assert tssd.variant(torch.bfloat16, 128, 64, 128, True) == "mma_bf16"
+    assert tssd.variant(torch.bfloat16, 16, 16, 32, True) == "mma_bf16"
+    assert tssd.variant(torch.float32, 128, 64, 128, True) == "simt"
+    assert tssd.variant(torch.bfloat16, 24, 64, 128, True) == "simt"
+    assert tssd.variant(torch.bfloat16, 128, 8, 128, True) == "simt"
+    assert tssd.variant(torch.bfloat16, 128, 40, 128, True) == "simt"
+    assert tssd.variant(torch.bfloat16, 128, 64, 24, True) == "simt"
+    assert tssd.variant(torch.bfloat16, 128, 64, 96, True) == "mma_bf16"
+    assert tssd.variant(torch.bfloat16, 128, 64, 48, True) == "simt"
+    assert all(q % tssd.MMA_CHUNK_MULTIPLE == 0 for q in tssd.CHUNKS)
+    assert tssd.variant(torch.bfloat16, 128, 64, 128, False) == "simt"
+
+
+def test_variant_by_alignment_of_views():
+    """The serving path's views of one (B, T, 2304) bf16 buffer are
+    aligned; a view shifted by one element, or a row stride that is not a
+    multiple of 16 bytes, is not, and takes the SIMT kernel."""
+    x, b, c = _xbc_views(8, 32, 1, 128, 64, torch.bfloat16)
+    assert x.stride(1) * 2 == 4608
+    assert tssd.aligned(x, b, c)
+    assert tssd.variant(x.dtype, 128, 64, 128,
+                        tssd.aligned(x, b, c)) == "mma_bf16"
+    x, b, c = _xbc_views(8, 32, 1, 128, 64, torch.bfloat16, offset=1)
+    assert not tssd.aligned(x, b, c)
+    assert not tssd.aligned(b) and not tssd.aligned(c)
+    x, b, c = _xbc_views(8, 32, 1, 128, 64, torch.bfloat16, extra=4)
+    assert x.data_ptr() % 16 == 0 and not tssd.aligned(x)
+    assert tssd.variant(x.dtype, 128, 64, 128,
+                        tssd.aligned(x, b, c)) == "simt"
+
+
+def test_reset_counts_zeroes_every_variant():
+    with tssd._count_lock:
+        tssd.launches_by_variant["simt"] += 1
+    tssd.reset_counts()
+    assert tssd.launches_by_variant == {"mma_bf16": 0, "simt": 0}
+    assert tssd.kernel_launches == 0 and tssd.plain_calls == 0
