@@ -16,7 +16,8 @@ flash attention on its local layers), each at full width and depth:
    TF32 off for float32 products;
 2. build: every CUDA kernel from the sources in the checkout, all ``nvcc``
    at once, with each kernel's registers and spills and both SSD kernels'
-   shared memory; the tensor-core SSD kernel must not spill;
+   shared memory; the tensor-core SSD kernel and the RG-LRU kernels must
+   not spill;
 3. the flash kernel against its plain PyTorch version on the card, on the
    reference's test cases, ragged tails and the serving paths' shapes
    (gemma3-1b's and recurrentgemma-9b's), with CUDA-event times of the
@@ -52,9 +53,11 @@ flash attention on its local layers), each at full width and depth:
     launches by variant;
 13. the RG-LRU kernel against its plain version on the card: the
     reference's test cases, ragged T, a nonzero initial state (final state
-    compared too), the serving path's shapes timed as in phase 3 (no single
-    PyTorch call computes it) and a long-memory case (Griffin's init of
-    lam); the same check must reject faults planted in the plain scan;
+    compared too), the serving path's shapes and T = 1100 (five spans of
+    the segmented scan) timed as in phase 3 (no single PyTorch call
+    computes it), each row with the launch shape and segment length it
+    ran, and long-memory cases (Griffin's init of lam); the same check must
+    reject faults planted in the plain scan, one dropped carry included;
 14. recurrentgemma-9b: prefill through the kernels against prefill through
     the plain versions, bfloat16 at the port's init (reported) and float32
     (gated, with stacked leaves at one layer's fan-in and again with
@@ -187,21 +190,24 @@ RG_CASES = [(2, 128, 128, False, "test"), (2, 256, 256, False, "test"),
             (2, 1, 256, True, "test"), (2, 39, 256, True, "test"),
             (2, 100, 256, True, "test")]
 # the serving path's shapes: recurrentgemma-9b prefill, B=1, width 4096,
-# float32 x/r/i, an initial state (prefill passes the cache's)
+# float32 x/r/i, an initial state (prefill passes the cache's); and
+# RG_LONG_T, past max_len, where the kernel's blocks walk five spans
 RG_PATH_T = (100, 256, 384, 511)
 RG_TIMED_T = 511
+RG_LONG_T = 1100
 # |kernel - plain| <= RG_TOL * (1 + |plain|): the reference's rtol = atol
 RG_TOL = 2e-4
 # faults planted in the plain RG-LRU scan: h rounded to bf16 at every step,
-# h0 ignored, the carry reset every RG_PIECE steps; the control runs the
-# scan in pieces of RG_PIECE steps carrying h, with no fault.  Phase 13's
-# check must pass the control and reject every fault at T = RG_TIMED_T;
-# phase 14's float32 logit gate must pass the control and reject the
-# faults named in RG_LOGIT_FAULTS (prefill starts from h0 = 0, so no_h0
-# does not apply there)
+# h0 ignored, the carry reset every RG_PIECE steps, the carry dropped once
+# at the kernel's first span boundary (reset_once, where T is past it); the
+# control runs the scan in pieces of RG_PIECE steps carrying h, with no
+# fault.  Phase 13's check must pass the control and reject every fault at
+# T = RG_TIMED_T and RG_LONG_T; phase 14's float32 logit gate must pass the
+# control and reject the faults named in RG_LOGIT_FAULTS (prefill starts
+# from h0 = 0, so no_h0 does not apply there, and no prefill is past a span)
 RG_PIECE = 128
 RG_CONTROL = "pieces"
-RG_FAULTS = ("bf16_carry", "no_h0", "reset_128")
+RG_FAULTS = ("bf16_carry", "no_h0", "reset_128", "reset_once")
 RG_LOGIT_FAULTS = ("bf16_carry", "reset_128")
 # phase 14 runs recurrentgemma-9b at the port's init in bf16 only,
 # reported: that init (the reference's rule: a stacked leaf's fan-in is its
@@ -348,6 +354,11 @@ def phase_build(out):
             len(mma) != 1 or mma[0]["spill_store_bytes"]):
         raise AssertionError(f"the tensor-core SSD kernel is missing from "
                              f"the build log or spills: {mma}")
+    rg = ptxas.get("rglru_fwd")
+    if rg is not None and (not rg or any(r["spill_store_bytes"]
+                                         for r in rg)):
+        raise AssertionError(f"an RG-LRU kernel is missing from the build "
+                             f"log or spills: {rg}")
 
 
 def _fa_inputs(S, H, KH, D, dtype, B, seed, model_layout):
@@ -549,9 +560,8 @@ def phase_model(out, arch):
                 control, gated = SSD_CONTROL, LOGIT_FAULTS[weights]
             elif arch == RGEMMA and dtype == "float32":
                 faults = {f: _planted_fault(arch, rmodel, toks, lr, f, gate)
-                          for f in (RG_CONTROL,) + RG_FAULTS
-                          if f != "no_h0"
-                          and (f != "reset_128" or S > RG_PIECE)}
+                          for f in (RG_CONTROL,) + RG_LOGIT_FAULTS
+                          if f != "reset_128" or S > RG_PIECE}
                 control, gated = RG_CONTROL, RG_LOGIT_FAULTS
             else:
                 faults, control, gated = {}, None, ()
@@ -1130,9 +1140,10 @@ def _rg_err(got, want):
     return float(err.max()), ratio, ratio <= RG_TOL
 
 
-def _faulty_rglru(fault, x, r, i, lam, h0=None):
-    """The plain RG-LRU scan with one planted fault (RG_FAULTS), or none:
-    in pieces (RG_CONTROL).  Returns (h float32, final state)."""
+def _faulty_rglru(fault, x, r, i, lam, h0=None, at=None):
+    """The plain RG-LRU scan with one planted fault (RG_FAULTS; reset_once
+    drops the carry at step ``at``), or none: in pieces (RG_CONTROL).
+    Returns (h float32, final state)."""
     import torch
     from repro_torch.kernels.rglru.ref import rglru_coeffs, rglru_reference
     if fault == "bf16_carry":
@@ -1145,13 +1156,16 @@ def _faulty_rglru(fault, x, r, i, lam, h0=None):
             hs.append(h)
         return torch.stack(hs, dim=1), h
     s = None if fault == "no_h0" else h0
+    T = x.shape[1]
+    cuts = ([0, at, T] if fault == "reset_once"
+            else list(range(0, T, RG_PIECE)) + [T])
     hs = []
-    for t0 in range(0, x.shape[1], RG_PIECE):
-        piece = slice(t0, t0 + RG_PIECE)
+    for t0, t1 in zip(cuts, cuts[1:]):
+        piece = slice(t0, t1)
         h, fin = rglru_reference(x[:, piece], r[:, piece], i[:, piece], lam,
                                  h0=s)
         hs.append(h)
-        s = None if fault == "reset_128" else fin
+        s = None if fault in ("reset_128", "reset_once") else fin
     return torch.cat(hs, dim=1), fin
 
 
@@ -1171,6 +1185,7 @@ def phase_rglru(out):
     cases += [dict(B=1, T=T, W=4096, h0=True, lam="test", path=True)
               for T in RG_PATH_T]
     cases.append(dict(cases[-1], path=False, lam="griffin"))
+    cases += [dict(cases[-2], T=RG_LONG_T), dict(cases[-1], T=RG_LONG_T)]
     rows = []
     for n, c in enumerate(cases):
         x, r, i, lv, s0 = _rglru_inputs(c["B"], c["T"], c["W"], c["h0"],
@@ -1181,7 +1196,8 @@ def phase_rglru(out):
         err_h, ratio_h, ok_h = _rg_err(h, hr)
         err_s, ratio_s, ok_s = _rg_err(fin, fr)
         row = {k: c[k] for k in ("B", "T", "W", "h0", "lam")}
-        row.update(max_abs_err=err_h, max_abs_err_state=err_s,
+        launch = ops.launch_shape(c["B"], c["T"], c["W"])
+        row.update(launch=launch, max_abs_err=err_h, max_abs_err_state=err_s,
                    max_err_over_1_plus_abs=max(ratio_h, ratio_s),
                    max_abs_h=float(hr.abs().max()), tol=RG_TOL,
                    ok=ok_h and ok_s, path=c.get("path", False))
@@ -1194,11 +1210,14 @@ def phase_rglru(out):
                                                               h0=s0))
             row["library_ms"] = None
             row.update(rglru_bound(c["B"], c["T"], c["W"], c["h0"]))
-        if c["T"] == RG_TIMED_T:
+        if c["T"] in (RG_TIMED_T, RG_LONG_T):
             # this check must pass the control and reject each fault
             row["planted_faults"] = {}
+            span = launch["segments"] * launch["segment_steps"]
             for f in (RG_CONTROL,) + RG_FAULTS:
-                hf, ff = _faulty_rglru(f, x, r, i, lv, s0)
+                if f == "reset_once" and c["T"] <= span:
+                    continue
+                hf, ff = _faulty_rglru(f, x, r, i, lv, s0, at=span)
                 eh, qh, oh = _rg_err(hf, hr)
                 es, qs, os_ = _rg_err(ff, fr)
                 row["planted_faults"][f] = {
@@ -1309,6 +1328,10 @@ def kernels_line(out):
         if name == "rglru_fwd":
             entry["library"] = ("no single PyTorch call computes the RG-LRU "
                                 "recurrence")
+            # the timed shape's launch: the segmented scan's grid and L
+            launch = timed["launch"] if timed else {}
+            for k in ("blocks", "threads_per_block", "segment_steps"):
+                entry[k] = launch.get(k)
         entries.append(entry)
     return {"kernels": entries}
 

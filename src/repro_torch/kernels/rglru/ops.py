@@ -12,6 +12,9 @@ multiples of 128) it takes any T >= 1 and any W, an initial state, and
 returns the final state, which is what serving prefill needs.  The output
 is float32, as the reference's is for its float32 inputs.
 
+The kernel is a block-local segmented scan (see the note in the source);
+:func:`launch_shape` reports the grid and segment length a call launches.
+
 The backward pass recomputes the plain version under autograd, as the
 reference's ``_bwd`` does: the forward is exact, so its gradients are exact
 too.  A backward kernel is later work.
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -59,7 +62,25 @@ def _lib() -> ctypes.CDLL:
         lib.rglru_fwd.restype = ctypes.c_int
         lib.rglru_error_string.argtypes = [ctypes.c_int]
         lib.rglru_error_string.restype = ctypes.c_char_p
+        lib.rglru_fwd_launch_shape.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+        lib.rglru_fwd_launch_shape.restype = ctypes.c_int
     return lib
+
+
+#: what :func:`launch_shape` reports, in the C function's order
+LAUNCH_KEYS = ("blocks", "threads_per_block", "segment_steps", "segments",
+               "spans")
+
+
+def launch_shape(B: int, T: int, W: int) -> Dict[str, int]:
+    """The launch of a kernel call on (B, T, W) inputs: its blocks, threads
+    per block, steps per segment (L), segments per span, and spans of
+    segments * L steps each block walks."""
+    shape = (ctypes.c_int * len(LAUNCH_KEYS))()
+    if _lib().rglru_fwd_launch_shape(B, T, W, shape) != 0:
+        raise ValueError(f"rglru_fwd: shape {(B, T, W)} not taken")
+    return dict(zip(LAUNCH_KEYS, shape))
 
 
 def rglru_fwd(x, r, i, lam, *, h0: Optional[torch.Tensor] = None):

@@ -287,6 +287,65 @@ def test_rglru_kernel_matches_plain(cuda, B, T, W, h0, lam):
                                    rtol=RG_TOL, atol=RG_TOL)
 
 
+# the segmented scan's boundaries: T either side of a segment's length L
+# (8 steps where one span of 16 L covers T, else 16) and of one and two
+# spans (128; 256, 512), and T = 1100 across four span boundaries; at a
+# ragged width with strided inputs, h0 and long memory, and at one tile's
+# width
+RG_BOUNDARY_T = (7, 8, 9, 31, 32, 33, 127, 128, 129, 255, 256, 257, 511,
+                 512, 513, 1100)
+RG_BOUNDARY_SETS = [(100, True, "griffin", True), (32, False, "test", False)]
+
+
+def _strided(t):
+    """``t`` as a view of a larger NaN-filled tensor: its own batch and
+    step strides and an offset, the last axis still unit-stride."""
+    B, T, W = t.shape
+    big = torch.full((B, T + 3, W + 7), float("nan"), device=t.device)
+    big[:, 2:T + 2, 5:W + 5] = t
+    return big[:, 2:T + 2, 5:W + 5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,h0,lam,strided", RG_BOUNDARY_SETS,
+                         ids=["W100-strided-h0-griffin", "W32"])
+@pytest.mark.parametrize("T", RG_BOUNDARY_T)
+def test_rglru_kernel_at_segment_and_span_boundaries(cuda, T, W, h0, lam,
+                                                     strided):
+    from repro_torch.kernels.rglru import ops as trg
+    from repro_torch.kernels.rglru.ref import rglru_reference
+    x, r, i, lv, s0 = _rg_inputs(2, T, W, h0, lam, cuda)
+    if strided:
+        x, r, i = (_strided(t) for t in (x, r, i))
+        assert not x.is_contiguous()
+    h, fin = trg.rglru_fwd(x, r, i, lv, h0=s0)
+    torch.cuda.synchronize()
+    hr, fr = rglru_reference(x, r, i, lv, h0=s0)
+    for got, want in ((h, hr), (fin, fr)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RG_TOL, atol=RG_TOL)
+    # the composed carry after the last span is the last step's state
+    assert torch.equal(fin, h[:, -1])
+
+
+@pytest.mark.gpu
+def test_rglru_launch_shape(cuda):
+    """At the serving path's widest prefill the grid fills 128 SMs with
+    16 warps each; L is 8 where one span of 16 L steps covers T, else 16."""
+    from repro_torch.kernels.rglru import ops as trg
+    assert trg.launch_shape(1, 511, 4096) == dict(
+        blocks=128, threads_per_block=512, segment_steps=16, segments=16,
+        spans=2)
+    for T, L, spans in ((1, 8, 1), (128, 8, 1), (129, 16, 1), (256, 16, 1),
+                        (257, 16, 2), (512, 16, 2), (513, 16, 3),
+                        (1100, 16, 5)):
+        shape = trg.launch_shape(2, T, 100)
+        assert (shape["blocks"], shape["segment_steps"],
+                shape["spans"]) == (8, L, spans)
+    with pytest.raises(ValueError, match="not taken"):
+        trg.launch_shape(1, 0, 4096)
+
+
 @pytest.mark.gpu
 def test_rglru_kernel_refuses_unsupported_inputs(cuda):
     from repro_torch.kernels.rglru import ops as trg

@@ -100,7 +100,11 @@ def test_init_and_final_state_match_jax(T, W, lam):
         assert float(jnp.abs(want[:, -1] - cold[:, -1]).max()) > 100 * TOL
 
 
-@pytest.mark.parametrize("T", [1, 39, 100])
+# T either side of a segment's length and of one and two spans of the CUDA
+# kernel's segmented scan (16 steps and 256 a span past T = 128), and
+# across four spans: the plain version is what the kernel is held to there
+@pytest.mark.parametrize("T", [1, 39, 100, 15, 16, 17, 255, 256, 257, 511,
+                               512, 513, 1100])
 def test_ragged_T_matches_jax(T):
     """Any T, with an initial state: the reference's scan at that T."""
     jx, tx = _inputs(T, 96, seed=3, h0=True, lam="griffin")
