@@ -67,7 +67,14 @@ flash attention on its local layers), each at full width and depth:
     in phase 5;
 16. float32 serving of recurrentgemma-9b against the sequential baseline;
 17. where recurrentgemma-9b's serving time goes, as in phase 7, with the
-    cost of casting its float32 gate matrices at every decode step.
+    cost of casting its float32 gate matrices at every decode step;
+18. gemma3-1b served over the socket transport, one spawned OS process a
+    rank (``run_serve(transport="socket", procs=3)``): the checks of phase
+    5 on the kernel counts that the server's own process returns, with the
+    session's wall time split and the wire's counters; float32 tokens
+    against phase 6's in-proc tokens; client processes that never open
+    the card; and a client process SIGKILLed mid-load, after which
+    the server drains cleanly.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -452,8 +459,8 @@ def path_kernels(cfg):
 
 def _counts():
     """(kernel launches, plain calls) of every wrapper, now."""
-    return {k: (o.kernel_launches, o.plain_calls)
-            for k, o in _all_ops().items()}
+    from repro_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def _since(before):
@@ -742,6 +749,18 @@ def _load():
                     max_new_lo=16, max_new_hi=32)
 
 
+def _request_lags(records):
+    """Per request, in arrival order: milliseconds from the scheduled
+    arrival to the server's admission task holding the server lock
+    (``t_recv``), and from its prefill's start to its first token, the
+    lock taken again for the splice (``t_first - t_admit``)."""
+    recs = sorted(records, key=lambda rec: rec["t_sched"])
+    return {"sched_to_recv_ms": [(rec["t_recv"] - rec["t_sched"]) * 1e3
+                                 for rec in recs],
+            "admit_to_first_ms": [(rec["t_first"] - rec["t_admit"]) * 1e3
+                                  for rec in recs]}
+
+
 def phase_serve(out, arch):
     """The main path of ``arch``: every kernel's counts are set to 0 just
     before the serving run and read just after it."""
@@ -770,7 +789,7 @@ def phase_serve(out, arch):
         "steps": r["steps"], "tick_execs": r["tick_execs"],
         "prefills": r["prefills"], "kernel_launches": launches,
         "ssd_launches_by_variant": ssd_by_variant,
-        "plain_calls": plain}))
+        "plain_calls": plain, **_request_lags(r["records"])}))
     checks = {
         "served == 8": r["served"] == load.requests,
         "slots_leaked == 0": r["slots_leaked"] == 0,
@@ -876,7 +895,8 @@ def phase_parity(out, arch):
     if bad:
         raise AssertionError(f"float32 served tokens differ from the "
                              f"sequential baseline beyond near-ties: {bad}")
-    out[f"parity_{arch}"] = {"requests": len(want), "differing": diffs}
+    out[f"parity_{arch}"] = {"requests": len(want), "differing": diffs,
+                             "served_tokens": got}
 
 
 def _kernel_time(prof):
@@ -1236,6 +1256,189 @@ def phase_rglru(out):
     out["rglru_cases"] = rows
 
 
+def _opened_the_card(pid):
+    """Whether process ``pid`` has opened an NVIDIA device file: the CUDA
+    driver does on its first call (``torch.cuda.is_available()`` too),
+    while importing torch only maps the libraries, ``libcuda.so``
+    included."""
+    fd_dir = f"/proc/{pid}/fd"
+    paths = []
+    for fd in os.listdir(fd_dir):
+        try:
+            paths.append(os.readlink(os.path.join(fd_dir, fd)))
+        except OSError:
+            pass                          # closed while listed
+    with open(f"/proc/{pid}/maps") as f:
+        paths += [line.split()[-1] for line in f if line.strip()]
+    return any(p.startswith("/dev/nvidia") for p in paths)
+
+
+def _socket_kill_client(load):
+    """Serve ``load`` over sockets, one process a rank, and SIGKILL client
+    rank 2's process once the server has admitted a request; before the
+    kill, record which processes have opened the card."""
+    import tempfile
+    import torch
+    from repro_torch import edat
+    from repro_torch.serve import serve_program
+    with tempfile.TemporaryDirectory(prefix="smoke_kill_") as tmp:
+        ready = os.path.join(tmp, "ready")
+        with edat.Session(3, procs=3, transport="socket", timeout=300,
+                          workers_per_rank=2, unconsumed="ignore") as s:
+            s.start(edat.deferred(serve_program, arch=GEMMA, reduced=False,
+                                  slots=4, max_len=MAX_LEN, load=load,
+                                  # resolved here, as run_serve does, so
+                                  # the clients never ask the driver
+                                  device=torch.device("cuda"),
+                                  ready_file=ready, ready_after=1))
+            deadline = time.monotonic() + 180
+            while not os.path.exists(ready):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the server admitted no request")
+                time.sleep(0.05)
+            opened = {rank: _opened_the_card(p.pid)
+                      for rank, p in s._pg._procs.items()}
+            time.sleep(0.2)
+            s.kill(2)
+            s.wait(240, check=False)
+            return s.exitcodes(), s.gather(), opened
+
+
+def phase_serve_socket(out):
+    """gemma3-1b served over the socket transport at full width, with
+    the server rank in its own spawned process: its kernel counts are
+    read in that process (since its warm-up), the parent's must not
+    move."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.serve import client_schedule, run_serve
+    load = _load()
+    cfg = ARCHS[GEMMA].cfg
+    expected = path_kernels(cfg)
+    parent0 = _counts()
+    t0 = time.monotonic()
+    res = run_serve(arch=GEMMA, reduced=False, clients=2, slots=4,
+                    max_len=MAX_LEN, load=load, transport="socket",
+                    procs=3, device="cuda")
+    session_s = time.monotonic() - t0
+    r, summary, wire = res["result"], res["summary"], res["stats"]["transport"]
+    launches, plain = r["kernel_launches"], r["plain_calls"]
+    recs = r["records"]
+    # the clients' release (READY) from their schedules: t_sched is the
+    # client's start plus the request's offset
+    offset = {q["id"]: q["t"] for c in range(2)
+              for q in client_schedule(load, c, 2, cfg.vocab)}
+    released = min(rec["t_sched"] - offset[rec["id"]] for rec in recs)
+    split = {"session_s": session_s,
+             "spawn_build_warmup_s": released - t0,
+             "serving_window_s": summary["wall_s"],
+             "rest_s": session_s - (released - t0) - summary["wall_s"]}
+    log("serve_socket " + json.dumps({
+        "arch": GEMMA, "card": out.get("card"), "dtype": cfg.dtype,
+        "reading": "smoke, 8 requests", "transport": "socket",
+        "procs": 3, **summary, "steps": r["steps"],
+        "tick_execs": r["tick_execs"], "prefills": r["prefills"],
+        "kernel_launches": launches, "plain_calls": plain, **split,
+        **_request_lags(recs),
+        "wire": {k: wire.get(k) for k in ("wire_events_sent", "writes",
+                                          "wire_bytes", "loopback_events",
+                                          "dropped")}}))
+    checks = {
+        "served == 8": r["served"] == load.requests,
+        "prefills == 8": r["prefills"] == load.requests,
+        "slots_leaked == 0": r["slots_leaked"] == 0,
+        "queue_left == 0": r["queue_left"] == 0,
+        "tick_execs == steps": r["tick_execs"] == r["steps"],
+        **{f"{name} launches == {n} x prefills":
+           launches[name] == n * r["prefills"]
+           for name, n in expected.items()},
+        "no other kernel launched": not any(
+            n for k, n in launches.items() if k not in expected),
+        "plain_calls == 0": not any(plain.values()),
+        "the parent launched nothing": _counts() == parent0,
+        "tokens in vocab": all(0 <= t < cfg.vocab for rec in recs
+                               for t in rec["tokens"]),
+        "events crossed the wire": wire.get("wire_events_sent", 0) > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"socket serve checks failed: {failed}")
+    out["serve_socket"] = {"summary": summary, "steps": r["steps"],
+                           "kernel_launches": launches,
+                           "plain_calls": plain, "split": split,
+                           "wire": wire}
+    out.setdefault("main_path_launches", {})[f"{GEMMA} socket"] = {
+        name: launches[name] for name in expected}
+
+    # float32: the socket-served tokens against phase 6's in-proc ones
+    f32 = cfg.replace(dtype="float32")
+    sock = run_serve(arch=GEMMA, reduced=False, clients=2, slots=4,
+                     max_len=MAX_LEN, load=load, transport="socket",
+                     procs=3, device="cuda", dtype="float32")
+    got = {rec["id"]: rec["tokens"] for rec in sock["result"]["records"]}
+    want = out.get(f"parity_{GEMMA}", {}).get("served_tokens")
+    if want is None:                     # phase 6 did not run: serve here
+        inproc = run_serve(arch=GEMMA, reduced=False, clients=2, slots=4,
+                           max_len=MAX_LEN, load=load, device="cuda",
+                           dtype="float32")
+        want = {rec["id"]: rec["tokens"]
+                for rec in inproc["result"]["records"]}
+        del inproc
+        _free()
+    prompts = {q["id"]: q["prompt"] for c in range(2)
+               for q in client_schedule(load, c, 2, cfg.vocab)}
+    if set(got) != set(want):
+        raise AssertionError("socket and in-proc request ids differ")
+    diffs = []
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        if a == b:
+            continue
+        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        gap = (_top2_gap(f32, prompts[rid], b, step)
+               if step < min(len(a), len(b)) else float("inf"))
+        diffs.append({"id": rid, "step": step, "top2_gap": gap})
+        _free()
+    log("parity_socket " + json.dumps({
+        "arch": GEMMA, "requests": len(want), "against": "in-proc float32",
+        "identical": len(want) - len(diffs), "differing": diffs}))
+    bad = [d for d in diffs if not d["top2_gap"] < NEAR_TIE]
+    if bad:
+        raise AssertionError(f"float32 socket-served tokens differ from "
+                             f"the in-proc ones beyond near-ties: {bad}")
+    out["parity_socket"] = {"requests": len(want), "differing": diffs}
+
+    # SIGKILL a client process mid-load: the server drains cleanly
+    codes, kres, opened = _socket_kill_client(load)
+    survivor = {q["id"] for q in client_schedule(load, 0, 2, cfg.vocab)}
+    served = {rec["id"] for rec in kres["records"]} if kres else set()
+    log("serve_socket_kill " + json.dumps({
+        "exitcodes": codes, "dead": kres and kres["dead"],
+        "served": kres and kres["served"], "survivor_requests":
+        len(survivor), "opened_the_card": opened}))
+    checks = {
+        "server and survivor exit 0": codes[0] == 0 and codes[1] == 0,
+        "victim exit non-zero": codes[2] not in (None, 0),
+        "a result was gathered": kres is not None,
+        "dead == [2]": bool(kres) and kres["dead"] == [2],
+        "slots_leaked == 0": bool(kres) and kres["slots_leaked"] == 0,
+        "queue_left == 0": bool(kres) and kres["queue_left"] == 0,
+        "every survivor request served": survivor <= served,
+        "plain_calls == 0": bool(kres) and not any(
+            kres["plain_calls"].values()),
+        "the server opened the card": opened[0],
+        "no client opened the card": not opened[1] and not opened[2],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"socket kill checks failed: {failed}")
+    out["serve_socket_kill"] = {"exitcodes": codes, "dead": kres["dead"],
+                                "served": kres["served"],
+                                "opened_the_card": opened}
+    torch.cuda.synchronize()
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -1257,6 +1460,7 @@ PHASES = {
     16: ("recurrentgemma-9b parity", lambda out: phase_parity(out, RGEMMA)),
     17: ("recurrentgemma-9b profile",
          lambda out: phase_profile(out, RGEMMA)),
+    18: ("gemma3-1b serve over sockets", phase_serve_socket),
 }
 
 

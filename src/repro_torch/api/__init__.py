@@ -3,9 +3,8 @@
 One declarative entry point (:class:`Session` / :func:`run`), typed
 event channels (:class:`Channel`), task handles and driver-side futures
 over the non-blocking event core, plus re-exports of everything a
-program touches: core primitives, collective patterns and timers.  The
-socket transport (``repro.net``) is not part of this copy yet: sessions
-run in-proc only.  This package ships ``py.typed`` — the surface is
+program touches: core primitives, collective patterns, timers, and the
+distribution layer.  This package ships ``py.typed`` — the surface is
 fully annotated for downstream type checking.
 
 ::
@@ -21,6 +20,7 @@ fully annotated for downstream type checking.
             ctx.fire(1, TOKEN, 1)
 
     edat.run(main, ranks=4)                             # threads
+    edat.run(main, ranks=4, procs=2, transport="socket")  # processes
 """
 from typing import Any
 
@@ -33,6 +33,8 @@ from repro_torch.core import (ALL, ANY, SELF, RANK_FAILED, Context, Dep,
 # -- collective patterns (previously deep-import only) -----------------------
 from repro_torch.core.patterns import (allreduce, barrier, tree_reduce,
                                        wait_barrier)
+# -- distribution layer ------------------------------------------------------
+from repro_torch.net import ProcessGroup, SocketTransport, launch_processes
 # -- v2 surface --------------------------------------------------------------
 from .channels import Channel
 from .program import DeferredProgram, Program, deferred
@@ -59,4 +61,6 @@ __all__ = [
     "InProcTransport", "Message", "Transport",
     # collectives + timers
     "barrier", "wait_barrier", "allreduce", "tree_reduce", "fire_after",
+    # distribution layer
+    "ProcessGroup", "SocketTransport", "launch_processes",
 ]

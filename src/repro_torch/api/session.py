@@ -18,7 +18,7 @@ Transports:
   driver process.  ``run`` is synchronous; the program object is shared
   with the driver, so ``gather()`` is a direct method call.
 * ``"socket"`` — one OS process per ``procs`` bucket of ranks over the
-  coalescing :class:`~repro.net.SocketTransport` (``placement`` for
+  coalescing :class:`~repro_torch.net.SocketTransport` (``placement`` for
   explicit rank->process maps).  The program (or its
   :func:`~repro_torch.api.program.deferred` factory) is pickled to the
   children; the process hosting rank 0 writes ``program.result()`` to a
@@ -39,6 +39,7 @@ import itertools
 import os
 import pickle
 import shutil
+import tempfile
 import threading
 import time
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
@@ -54,10 +55,6 @@ ProgramLike = Union[Program, DeferredProgram, Callable[[Context], None]]
 DepLike = Tuple[Any, str]
 
 _UNSET = object()
-
-#: the socket transport (``repro.net``: spawn, bootstrap, elastic join) is
-#: not part of this copy of the runtime yet
-_SOCKET_LATER = "socket transport: later slice of the port"
 
 # RankDiedError lives in repro_torch.core.runtime (re-exported here for the
 # stable ``edat.RankDiedError`` surface): the same class covers a driver
@@ -237,8 +234,6 @@ class Session:
         if transport not in ("inproc", "socket"):
             raise ValueError(f"unknown transport {transport!r} "
                              f"(expected 'inproc' or 'socket')")
-        if transport == "socket" or elastic:
-            raise NotImplementedError(_SOCKET_LATER)
         if transport == "inproc" and (procs not in (None, 1)
                                       or placement is not None):
             # a forgotten transport="socket" must not silently run as
@@ -390,7 +385,43 @@ class Session:
         if self.transport != "socket":
             raise RuntimeError("start() is for socket sessions; inproc "
                                "sessions run synchronously via run()")
-        raise NotImplementedError(_SOCKET_LATER)
+        if self._pg is not None:
+            raise RuntimeError("a round is already in flight; wait() first")
+        from repro_torch.net.launch import ProcessGroup
+        prog, dfr, mainfn = _split_program(program)
+        self._gathered, self._has_result = None, False   # round-scoped
+        self._cleanup_spool()
+        self._tmpdir = tempfile.mkdtemp(prefix="edat_session_")
+        self._result_path = os.path.join(self._tmpdir, "result.pkl")
+        main = _SessionMain(program=prog, deferred=dfr, mainfn=mainfn,
+                            calls=self._take_calls(),
+                            result_path=self._result_path)
+        kwargs: Dict[str, Any] = dict(
+            run_timeout=timeout or self.timeout, host=self.host,
+            workers_per_rank=self.workers_per_rank, progress=self.progress,
+            unconsumed=self.unconsumed, coalesce=self.coalesce,
+            flush_interval=self.flush_interval,
+            max_batch_bytes=self.max_batch_bytes,
+            hb_interval=self.hb_interval, hb_timeout=self.hb_timeout,
+            metrics=self.metrics, trace=self.trace)
+        if self.elastic:
+            kwargs["elastic"] = True
+        if self.durable:
+            spec = (dict(self.durable) if isinstance(self.durable, dict)
+                    else {})
+            # every rank process appends to one shared sqlite file; it
+            # lives beside the result spool so teardown reaps both
+            spec.setdefault("path",
+                            os.path.join(self._tmpdir, "durable.sqlite"))
+            self.durable_log_path = spec["path"]
+            kwargs["durable"] = spec
+        if self.placement_spec is not None:
+            kwargs["placement"] = self.placement_spec
+        else:
+            kwargs["n_procs"] = self.procs
+        self._pg = ProcessGroup(self.ranks, main, **kwargs)
+        self._pg.start()
+        return self
 
     def wait(self, timeout: Optional[float] = None,
              check: bool = True) -> Dict[str, Any]:

@@ -3,7 +3,7 @@
 The counters themselves live where the events flow — per-eid dicts inside
 each :class:`~repro_torch.core.scheduler.Scheduler` (bumped under the locks the
 hot paths already hold) and per-peer vectors inside
-:class:`~repro.net.SocketTransport`.  This module holds what is common to
+:class:`~repro_torch.net.SocketTransport`.  This module holds what is common to
 every layer:
 
 * :func:`payload_nbytes` — the cheap payload-size estimate the fire path

@@ -14,7 +14,7 @@ four-counter logic itself (two consecutive idle polls with globally
 
 A ``Runtime`` may host *all* ranks (threads-as-ranks over
 :class:`InProcTransport`) or a subset of them (one OS process hosting one
-*or several* ranks over :class:`repro.net.SocketTransport`, declared via
+*or several* ranks over :class:`repro_torch.net.SocketTransport`, declared via
 the transport's ``local_ranks``; co-located ranks exchange messages
 through the transport's in-process loopback).  In the distributed case
 every cross-rank interaction —

@@ -6,10 +6,10 @@ The paper's EDAT library ships an MPI transport behind a pluggable interface;
 * :class:`InProcTransport` — ranks are threads with private object spaces in
   one process.  The reference implementation: zero-copy mailboxes, payloads
   deep-copied at fire time, ``kill_rank`` failure simulation.
-* :class:`repro.net.SocketTransport` — ranks are separate OS processes
+* :class:`repro_torch.net.SocketTransport` — ranks are separate OS processes
   exchanging length-prefixed pickled frames over TCP, with a heartbeat-based
-  peer failure detector.  Built by :mod:`repro.net.bootstrap` and launched
-  by ``python -m repro.net.launch`` / :func:`repro.net.launch_processes`.
+  peer failure detector.  Built by :mod:`repro_torch.net.bootstrap` and launched
+  by ``python -m repro_torch.net.launch`` / :func:`repro_torch.net.launch_processes`.
 
 Both preserve the semantics that the correctness arguments rely on:
 

@@ -5,3 +5,15 @@ Each kernel package: ops.py (checked wrapper, launch counter, autograd),
 ref.py (plain version).  Sources live in ``repro_torch/csrc`` and are built
 on first use by :mod:`._build`.
 """
+from typing import Dict, Tuple
+
+
+def launch_counts() -> Dict[str, Tuple[int, int]]:
+    """``{kernel: (kernel launches, plain calls)}`` of every kernel's
+    wrapper in this process, now."""
+    from .flash_attention import ops as fa
+    from .rglru import ops as rglru
+    from .ssd import ops as ssd
+    return {name: (ops.kernel_launches, ops.plain_calls)
+            for name, ops in (("flash_attention_fwd", fa), ("ssd_fwd", ssd),
+                              ("rglru_fwd", rglru))}

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.serve.program`` on the port's copy of the EDAT
 runtime, with the same channels, tasks and backpressure.  The model runs on
-``device`` (the card unless the caller asks for the CPU); sessions are
-in-proc only until the socket transport is ported.
+``device`` (the card unless the caller asks for the CPU), in rank 0's
+process only: over the socket transport the client processes never build
+it and never touch the card.
 
 Every interaction is an event on a declared typed channel; there is no
 polling loop anywhere::
@@ -45,9 +46,12 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch import edat
+from repro_torch.kernels import launch_counts
 
 from .engine import DEFAULT_MAX_LEN, ServeEngine, resolve_device, serving_cfg
 from .loadgen import LoadSpec, client_schedule, summarize
@@ -79,7 +83,11 @@ class ServeProgram:
                  ready_after: int = 1,
                  device=None,
                  params: Optional[Dict[str, Any]] = None):
-        self.device = resolve_device(device)
+        # a torch.device comes resolved (run_serve resolves it in the
+        # caller, before any process spawns), so client processes never
+        # ask the CUDA driver
+        self.device = (device if isinstance(device, torch.device)
+                       else resolve_device(device))
         self.params = params
         self.cfg = serving_cfg(cfg, max_len)
         self.slots = slots
@@ -104,6 +112,8 @@ class ServeProgram:
         self.admitted = 0
         self.dead: set = set()
         self.t_start: Optional[float] = None
+        #: the kernels' counts in this process once warm-up is done
+        self._counts0: Optional[Dict[str, Tuple[int, int]]] = None
 
     # -- engine (built lazily: client ranks never pay for the model
     # build) ------------------------------------------------------------------
@@ -128,6 +138,7 @@ class ServeProgram:
         # build + warm up before any load arrives, then release the
         # clients: measured latency is serving, not set-up
         self.engine.warmup(self.load.prompt_lens)
+        self._counts0 = launch_counts()
         self.t_start = time.monotonic()
         ctx.submit_persistent(self._on_request, deps=[(edat.ANY, REQUEST)],
                               name="serve.request")
@@ -310,7 +321,17 @@ class ServeProgram:
 
     # --------------------------------------------------------------- results
     def result(self) -> Dict[str, Any]:
+        """The round's records and counters.  ``kernel_launches`` and
+        ``plain_calls`` (``{kernel: n}``, None before the server started)
+        count each kernel's wrapper calls in this process since warm-up:
+        read in the server's own process, where over sockets the model
+        runs."""
         eng = self._engine
+        launched = plain = None
+        if self._counts0 is not None:
+            now = launch_counts()
+            launched = {k: now[k][0] - self._counts0[k][0] for k in now}
+            plain = {k: now[k][1] - self._counts0[k][1] for k in now}
         return {
             "records": sorted(self.records, key=lambda r: r["id"]),
             "served": self.served,
@@ -322,6 +343,8 @@ class ServeProgram:
             "bp_signals": self.bp_signals,
             "dead": sorted(self.dead),
             "slots": self.slots,
+            "kernel_launches": launched,
+            "plain_calls": plain,
         }
 
 
@@ -358,14 +381,14 @@ def run_serve(*, arch: str = "gemma3-1b", reduced: bool = True,
 
     ``summary`` rates are computed over the *serving window* (first
     scheduled arrival to last completion), not session wall time, so
-    model build and warm-up do not pollute tokens/s.
+    process spawn, model build and warm-up do not pollute tokens/s.
 
-    ``device`` defaults to the card (RuntimeError without one), ``dtype``
-    overrides the config's, ``params`` serves a reference parameter tree
-    of numpy arrays instead of the seeded init.  Only
-    ``transport="inproc"`` exists in this slice of the port."""
-    if transport != "inproc" or procs not in (None, 1):
-        raise NotImplementedError("socket transport: later slice of the port")
+    ``device`` defaults to the card (RuntimeError without one, raised
+    here before any process spawns), ``dtype`` overrides the config's,
+    ``params`` serves a reference parameter tree of numpy arrays instead
+    of the seeded init; over sockets it is pickled to every rank's
+    process, so at full width leave it out and let the server seed its
+    own."""
     device = resolve_device(device)
     load = load or LoadSpec()
     with edat.Session(1 + clients, procs=procs, transport=transport,

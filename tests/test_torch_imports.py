@@ -9,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ARCHS, reduce_cfg            # noqa: E402
+from repro_torch.net.launch import ProcessGroup              # noqa: E402
 from repro_torch.serve import (LoadSpec, SequentialEngine,   # noqa: E402
                                ServeEngine, run_sequential, run_serve,
                                serve_program)
@@ -29,7 +30,9 @@ assert not bad, bad
 for name in ("repro_torch.models.mamba2", "repro_torch.kernels.ssd.ops",
              "repro_torch.kernels.ssd.ref", "repro_torch.models.rglru",
              "repro_torch.kernels.rglru.ops",
-             "repro_torch.kernels.rglru.ref"):
+             "repro_torch.kernels.rglru.ref", "repro_torch.net",
+             "repro_torch.net.frames", "repro_torch.net.socket_transport",
+             "repro_torch.net.bootstrap", "repro_torch.net.launch"):
     assert name in names, name
 """
 
@@ -40,7 +43,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 37      # configs, runtime, models, kernels, serve
+    assert n_modules >= 42      # configs, runtime, net, models, kernels, serve
 
 
 CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
@@ -49,6 +52,8 @@ ENTRY_POINTS = {
     "SequentialEngine": lambda: SequentialEngine(CFG),
     "serve_program": lambda: serve_program("gemma3-1b"),
     "run_serve": lambda: run_serve(load=LoadSpec(requests=1)),
+    "run_serve_socket": lambda: run_serve(transport="socket", procs=2,
+                                          load=LoadSpec(requests=1)),
     "run_serve_mamba2": lambda: run_serve(arch="mamba2-370m", reduced=False,
                                           load=LoadSpec(requests=1)),
     "run_serve_recurrentgemma": lambda: run_serve(
@@ -59,7 +64,12 @@ ENTRY_POINTS = {
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_point_without_gpu_raises(name, monkeypatch):
-    """device=None means the card: without one, raise, never fall back."""
+    """device=None means the card: without one, raise, never fall back,
+    and spawn no rank process first."""
+    def spawn(self):
+        raise AssertionError("spawned rank processes without a card")
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(ProcessGroup, "start", spawn)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()

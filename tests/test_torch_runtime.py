@@ -192,12 +192,6 @@ def test_rank_failed_surfaces():
     assert _both(program) == [(0, 2), (1, 2)]
 
 
-def test_socket_transport_is_a_later_slice():
-    for kw in ({"transport": "socket"}, {"elastic": True}):
-        with pytest.raises(NotImplementedError, match="socket transport"):
-            port_edat.Session(2, **kw)
-
-
 def test_deprecated_runtime_run_warns_under_the_suite_filter():
     """The copied deprecation shim keeps the message the suite's
     ``error:.*is deprecated.*edat`` filter matches."""
