@@ -8,9 +8,10 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Three paths are driven, gemma3-1b (flash attention),
-mamba2-370m (the SSD scan) and recurrentgemma-9b (the RG-LRU recurrence and
-flash attention on its local layers), each at full width and depth:
+raise on failure.  Four main paths are driven, each at full width and
+depth: serving gemma3-1b (flash attention), mamba2-370m (the SSD scan) and
+recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
+layers), and training gemma3-1b (flash attention in every forward):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -74,7 +75,18 @@ flash attention on its local layers), each at full width and depth:
     session's wall time split and the wire's counters; float32 tokens
     against phase 6's in-proc tokens; client processes that never open
     the card; and a client process SIGKILLed mid-load, after which
-    the server drains cleanly.
+    the server drains cleanly;
+19. gemma3-1b trained by the event-driven trainer
+    (``EventDrivenTrainer.run``, in-proc, 2 ranks, AdamW, bf16, 4 steps of
+    2 sequences of 512 a rank): the flash kernel's launches (26 a forward),
+    no plain call, the backward's plain recomputes (26 a backward), finite
+    losses, bit-equal replicas; one step split into forward and backward,
+    the grads' copy to the host, the quorum reduce, the copy back and the
+    update (host clock), the forward and backward under the profiler,
+    peak device memory and peak RSS; then float32 runs, the kernel path
+    against the plain path (loss history and weights), with a fault
+    planted in the plain path and one that skips the grad average, each of
+    which the gate must reject.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -249,7 +261,8 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
-def kernel_device_ms(fn, entry, iters=20, warmup=3, lead=10, tries=3):
+def kernel_device_ms(fn, entry, event_ms=None, iters=20, warmup=3,
+                     lead=10, tries=3):
     """Mean device milliseconds of one launch of the kernel whose name
     holds ``entry`` (``fn`` launches it once a call), and how many of the
     window's launches the profiler recorded, from
@@ -259,7 +272,10 @@ def kernel_device_ms(fn, entry, iters=20, warmup=3, lead=10, tries=3):
     profiler can miss the first launches of a window, so each window
     opens with ``lead`` launches that are not counted, and the mean is over
     the last ``iters`` launches it recorded; a window that recorded fewer
-    than ``iters`` is profiled again, up to ``tries`` times."""
+    than ``iters`` is profiled again, up to ``tries`` times.  With
+    ``event_ms`` (``cuda_ms`` of the same calls) a window whose device time
+    is under half of it is flagged in a printed line: there the host's work
+    between launches, not the kernel, set the event time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -278,6 +294,10 @@ def kernel_device_ms(fn, entry, iters=20, warmup=3, lead=10, tries=3):
         counts.append(len(spans))
         if iters <= len(spans) <= lead + iters:
             ms = sum(t1 - t0 for t0, t1 in spans[-iters:]) / 1e3 / iters
+            if event_ms is not None and ms < event_ms / 2:
+                log(f"kernel_device_ms FLAG {entry}: device {ms:.5f} ms is "
+                    f"under half the event time {event_ms:.5f} ms (the "
+                    f"host's work between launches set the event time)")
             return ms, len(spans)
     raise AssertionError(f"profiled {counts} launches of {entry} in "
                          f"windows of {lead + iters} calls, not {iters} or "
@@ -405,6 +425,11 @@ def phase_kernels(out):
               for S in PATH_S for w in PATH_WINDOWS]
     cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=RGEMMA,
                    **RG_FA_SHAPE) for S in PATH_S]
+    # the training forward's calls (phase 19): each rank's 2 x 512 tokens
+    cases += [dict(S=TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
+                   softcap=None, dtype="bfloat16",
+                   B=TRAIN_DATA["global_batch"] // TRAIN_RANKS,
+                   path=f"{GEMMA}-train") for w in PATH_WINDOWS]
     rows = []
     for n, c in enumerate(cases):
         q, k, v = _fa_inputs(c["S"], c["H"], c["KH"], c["D"], c["dtype"],
@@ -427,7 +452,8 @@ def phase_kernels(out):
                                                                 **kw))
             (row["device_ms"],
              row["device_launches_recorded"]) = kernel_device_ms(
-                lambda: ops.flash_attention_fwd(q, k, v, **kw), "fwd_kernel")
+                lambda: ops.flash_attention_fwd(q, k, v, **kw), "fwd_kernel",
+                event_ms=row["ms"])
             row["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v,
                                                                 **kw))
             row["library_ms"] = cuda_ms(_sdpa(q, k, v, scale=kw["scale"],
@@ -1087,7 +1113,7 @@ def phase_ssd(out):
                  row[key + "device_launches_recorded"]) = kernel_device_ms(
                     lambda: ops.ssd_fwd(x, dt, a_log, b, cc, kernel=v,
                                         **kw),
-                    SSD_ENTRY[v])
+                    SSD_ENTRY[v], event_ms=row[key + "ms"])
             row["plain_ms"] = cuda_ms(lambda: ssd_padded_reference(
                 x, dt, a_log, b, cc, **kw))
             row["library_ms"] = None
@@ -1225,7 +1251,8 @@ def phase_rglru(out):
             row["ms"] = cuda_ms(lambda: ops.rglru_fwd(x, r, i, lv, h0=s0))
             (row["device_ms"],
              row["device_launches_recorded"]) = kernel_device_ms(
-                lambda: ops.rglru_fwd(x, r, i, lv, h0=s0), "rglru_fwd_kernel")
+                lambda: ops.rglru_fwd(x, r, i, lv, h0=s0), "rglru_fwd_kernel",
+                event_ms=row["ms"])
             row["plain_ms"] = cuda_ms(lambda: rglru_reference(x, r, i, lv,
                                                               h0=s0))
             row["library_ms"] = None
@@ -1439,6 +1466,285 @@ def phase_serve_socket(out):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------- the event-driven trainer
+# phase 19: full-width gemma3-1b trained by EventDrivenTrainer.run, in-proc,
+# 2 ranks on the one card; every rank's batch is 2 sequences of 512 (S % 128
+# == 0: a shape where the reference's ops.supported also takes its kernel)
+TRAIN_DATA = dict(vocab=262144, seq=512, global_batch=4, seed=7)
+TRAIN_RANKS, TRAIN_STEPS, PARITY_STEPS = 2, 4, 3
+# the float32 kernel-vs-plain gate of the trainer.  sgdm (updates linear in
+# the grads) at lr 1 with clipping at norm 1: each step moves the weights by
+# a unit-norm update, large against the weights' own float32 rounding, so a
+# fault that changes the grads shows in the weights.  The kernel and the
+# plain forward agree to ~1e-6 relative (phase 3's float32 cases), and the
+# backward is the same plain recompute on both paths, so every loss must
+# agree within TRAIN_LOSS_RTOL of its size and every weight w within
+# TRAIN_PARAM_RTOL * |w| + TRAIN_PARAM_ATOL: the grads' ~1e-6 relative
+# difference, carried through three steps into the weights, and ~80 float32
+# ulps of each weight; 1e-6 for weights near 0.  The replicas
+# of one run must be equal bit for bit (sync DP: both ranks average the
+# same grads in the same order and apply the same update).  Planted:
+# TRAIN_FAULTS["plain"] in the plain path must fail the parity gate,
+# TRAIN_FAULTS["replicas"] must fail the replica gate; the fault-free runs
+# pass both
+TRAIN_PARITY_OPT = dict(name="sgdm", peak_lr=1.0, warmup=1, total_steps=100,
+                        clip_norm=1.0)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6
+TRAIN_FAULTS = {"plain": "attention_scale_x1.01",
+                "replicas": "own_grads_only"}
+
+
+def _train_run(dtype, attn_impl, opt, steps, fault=None):
+    """One in-proc EventDrivenTrainer.run of full-width gemma3-1b on the
+    card; ``fault`` plants one of TRAIN_FAULTS for this run only.
+    Returns (trainer, result, host-clock arrival time of each metric)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataCfg
+    from repro_torch.models import attention, build_model
+    from repro_torch.optim import OptCfg
+    from repro_torch.runtime_dist import trainer as rt
+    cfg = ARCHS[GEMMA].cfg.replace(dtype=dtype, attn_impl=attn_impl)
+    # a full-width step takes seconds: the straggler bound must not cut a
+    # rank out of a synchronous step
+    tcfg = rt.TrainerCfg(steps=steps, n_ranks=TRAIN_RANKS,
+                         collect_timeout=600.0)
+    tr = rt.EventDrivenTrainer(build_model(cfg), DataCfg(**TRAIN_DATA),
+                               OptCfg(**opt), tcfg,
+                               device=torch.device("cuda"))
+    arrivals = []
+    tr.on_metric = lambda m: arrivals.append(
+        (time.monotonic(), m["rank"], m["step"]))
+    plain_attention = attention.ref_attention
+    ensure_own = rt.QuorumCollector.ensure_own
+    if fault == TRAIN_FAULTS["plain"]:
+        attention.ref_attention = (
+            lambda *a, scale, **kw: plain_attention(*a, scale=scale * 1.01,
+                                                    **kw))
+    elif fault == TRAIN_FAULTS["replicas"]:
+        def own_only(self, rank, grads):
+            self.got = {rank: grads}
+        rt.QuorumCollector.ensure_own = own_only
+    try:
+        t0 = time.monotonic()
+        res = tr.run(timeout=900)
+        torch.cuda.synchronize()
+    finally:
+        attention.ref_attention = plain_attention
+        rt.QuorumCollector.ensure_own = ensure_own
+    res["wall_s"] = time.monotonic() - t0
+    res["metric_arrivals_s"] = [(t - t0, r, s) for t, r, s in arrivals]
+    return tr, res
+
+
+def _losses(res):
+    return {(m["rank"], m["step"]): m["loss"] for m in res["history"]}
+
+
+def _replicas_equal(res):
+    """Whether rank 0's and rank 1's final trees are equal bit for bit."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    a, b = res["final_params"][:2]
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def _parity(kres, rres):
+    """The float32 gate of two runs: its ratios (<= 1 passes)."""
+    from repro_torch.tree import tree_leaves
+    kl, rl = _losses(kres), _losses(rres)
+    if sorted(kl) != sorted(rl):
+        raise AssertionError(f"loss histories differ in shape: {sorted(kl)} "
+                             f"against {sorted(rl)}")
+    loss = max(abs(kl[k] - rl[k]) / (TRAIN_LOSS_RTOL * abs(rl[k]))
+               for k in rl)
+    param, diff = 0.0, 0.0
+    for x, y in zip(tree_leaves(kres["final_params"][0]),
+                    tree_leaves(rres["final_params"][0])):
+        d = (x.float() - y.float()).abs()
+        diff = max(diff, float(d.max()))
+        param = max(param, float((d / (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL
+                                       * y.float().abs())).max()))
+    return {"loss_ratio": loss, "param_ratio": param,
+            "max_abs_param_diff": diff,
+            "max_abs_loss_diff": max(abs(kl[k] - rl[k]) for k in rl),
+            "rejected": not (loss <= 1.0 and param <= 1.0)}
+
+
+def _step_split(tr, data_step):
+    """One bf16 step of rank 0, piece by piece, each piece ending in a
+    device sync, host clock (ms): the forward and backward (its first,
+    cold call is timed apart and left out of the step), the grads'
+    device-to-host copy, the quorum reduce of 2 ranks' grads on the host,
+    the mean's host-to-device copy and the optimizer update; then the
+    forward and backward again under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime_dist.trainer import QuorumCollector, _host32
+    from repro_torch.train import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    st = tr.states[0]
+    batch = {k: torch.from_numpy(v).to("cuda", torch.long)
+             for k, v in tr.data.batch(data_step, 0, TRAIN_RANKS).items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        return val, (time.perf_counter() - t0) * 1e3
+
+    split = {}
+    fwd_bwd = lambda: value_and_grad(tr.model, st.params, batch)  # noqa
+    # the first call after _free() takes its activations' memory from the
+    # CUDA driver (the caching allocator was emptied): timed apart, as cold
+    _, split_cold_ms = timed(fwd_bwd)
+    (_, grads), split["forward_backward_ms"] = timed(fwd_bwd)
+    host, split["grads_to_host_ms"] = timed(
+        lambda: tree_map(_host32, grads))
+    del grads
+    coll = QuorumCollector(step=0, epoch=0, need=TRAIN_RANKS,
+                           stale_discount=0.5)
+    for r in range(TRAIN_RANKS):    # rank 0's grads stand in for each rank's
+        coll.offer({"rank": r, "step": 0, "epoch": 0, "grads": host})
+    (gavg, _, _), split["quorum_reduce_ms"] = timed(coll.reduce)
+    del host, coll
+    gdev, split["mean_to_device_ms"] = timed(lambda: tree_map(
+        lambda a: torch.from_numpy(a).to("cuda"), gavg))
+    del gavg
+
+    def update():
+        with torch.no_grad():
+            return tr.opt.update(gdev, st.opt_state, st.params, st.step)
+    _, split["optimizer_update_ms"] = timed(update)
+    del gdev
+    split["step_ms"] = sum(split.values())
+    split["forward_backward_cold_ms"] = split_cold_ms
+    grad_bytes = sum(p.numel() for p in tree_leaves(st.params)) * 4
+    split["grad_bytes_float32"] = grad_bytes
+    # the busy share is the profiled call's device time over that same
+    # call's host wall (the profiler's own cost included)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = timed(fwd_bwd)
+    device_ms, n_kernels, top = _kernel_time(prof)
+    split["forward_backward_profile"] = {
+        "device_ms": device_ms, "wall_ms": wall_ms, "kernels": n_kernels,
+        "device_busy_share": device_ms / wall_ms,
+        "top_kernels_ms_count": top}
+    return split
+
+
+def phase_train(out):
+    """gemma3-1b trained by the event-driven trainer at full width (the
+    training main path), then the float32 parity of its kernel path
+    against its plain path, with planted faults."""
+    import math
+    import resource
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops as fa
+    cfg = ARCHS[GEMMA].cfg
+    expected = path_kernels(cfg)["flash_attention_fwd"] * TRAIN_RANKS \
+        * TRAIN_STEPS
+    all_ops = _all_ops()
+    torch.cuda.synchronize()
+    for ops in all_ops.values():
+        ops.reset_counts()                 # the main path's counts only
+    tr, res = _train_run("bfloat16", "kernel", {"name": "adamw"},
+                         TRAIN_STEPS)
+    launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
+    plain = {k: ops.plain_calls for k, ops in all_ops.items()}
+    recomputes = fa.backward_recomputes
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = _losses(res)
+    row = {"arch": GEMMA, "card": out.get("card"), "dtype": cfg.dtype,
+           "ranks": TRAIN_RANKS, "steps": TRAIN_STEPS, "optimizer": "adamw",
+           "data": TRAIN_DATA, "wall_s": res["wall_s"],
+           "metric_arrivals_s": res["metric_arrivals_s"],
+           "losses": {f"{r}/{s}": v for (r, s), v in losses.items()},
+           "kernel_launches": launches, "plain_calls": plain,
+           "backward_recomputes": recomputes,
+           "timeouts": res["timeouts"],
+           "max_memory_allocated_gib": peak_gib}
+    checks = {
+        f"{len(losses)} losses == ranks x steps":
+            len(losses) == TRAIN_RANKS * TRAIN_STEPS,
+        "every loss finite": all(math.isfinite(v) for v in losses.values()),
+        "replicas equal": _replicas_equal(res),
+        f"flash_attention_fwd launches == {expected}":
+            launches["flash_attention_fwd"] == expected,
+        "no other kernel launched": not any(
+            n for k, n in launches.items() if k != "flash_attention_fwd"),
+        "plain_calls == 0": not any(plain.values()),
+        f"backward_recomputes == {expected}": recomputes == expected,
+        "no straggler timeout": res["timeouts"] == 0,
+    }
+    del res
+    _free()
+    split = _step_split(tr, TRAIN_STEPS)
+    del tr
+    _free()
+    row["step_split"] = split
+    row["peak_rss_gib"] = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                           / 2 ** 20)
+    log("train " + json.dumps(row))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+    out[f"train_{GEMMA}"] = row
+    out.setdefault("main_path_launches", {})[f"{GEMMA}-train"] = {
+        "flash_attention_fwd": launches["flash_attention_fwd"]}
+
+    # float32: the kernel path against the plain path, planted faults
+    runs = {}
+    for name, impl, fault in (("kernel", "kernel", None),
+                              ("plain", "ref", None),
+                              (TRAIN_FAULTS["plain"], "ref",
+                               TRAIN_FAULTS["plain"]),
+                              (TRAIN_FAULTS["replicas"], "kernel",
+                               TRAIN_FAULTS["replicas"])):
+        tr, res = _train_run("float32", impl, TRAIN_PARITY_OPT,
+                             PARITY_STEPS, fault)
+        del tr
+        runs[name] = {"res": res, "replicas_equal": _replicas_equal(res),
+                      "wall_s": res["wall_s"]}
+        del res["final_params"][1:]       # rank 0's tree is compared
+        if name == "kernel":
+            continue
+        if name != TRAIN_FAULTS["replicas"]:
+            runs[name]["gate"] = _parity(runs["kernel"]["res"], res)
+        del res["final_params"]           # free the card for the next run
+        _free()
+    report = {n: {k: v for k, v in r.items() if k != "res"}
+              for n, r in runs.items()}
+    report["kernel"]["losses"] = {f"{r}/{s}": v for (r, s), v in
+                                  _losses(runs["kernel"]["res"]).items()}
+    del runs
+    _free()
+    log("train_parity " + json.dumps({
+        "arch": GEMMA, "dtype": "float32", "optimizer": TRAIN_PARITY_OPT,
+        "steps": PARITY_STEPS, "loss_rtol": TRAIN_LOSS_RTOL,
+        "param_rtol": TRAIN_PARAM_RTOL, "param_atol": TRAIN_PARAM_ATOL,
+        **report}))
+    checks = {
+        "float32 kernel path == plain path": not report["plain"]["gate"][
+            "rejected"],
+        "the plain fault fails the gate": report[TRAIN_FAULTS["plain"]][
+            "gate"]["rejected"],
+        "kernel run replicas equal": report["kernel"]["replicas_equal"],
+        "plain run replicas equal": report["plain"]["replicas_equal"],
+        "the own-grads fault fails the replica gate":
+            not report[TRAIN_FAULTS["replicas"]]["replicas_equal"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train parity checks failed: {failed}")
+    out[f"train_parity_{GEMMA}"] = report
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -1461,14 +1767,16 @@ PHASES = {
     17: ("recurrentgemma-9b profile",
          lambda out: phase_profile(out, RGEMMA)),
     18: ("gemma3-1b serve over sockets", phase_serve_socket),
+    19: ("gemma3-1b train (event-driven trainer)", phase_train),
 }
 
 
 def kernels_line(out):
     """One entry per kernel.  ``launches`` sums the kernel's launches over
     the main paths this run drove (each counted from 0 just before its
-    serving run), ``launches_by_path`` splits them by path; the numbers of
-    one timed shape stand in the entry, every shape is in ``--json``.
+    serving or training run), ``launches_by_path`` splits them by path;
+    the numbers of one timed shape stand in the entry, every shape is in
+    ``--json``.
     ``ms`` (and ``kernel_ms``) is CUDA events around back-to-back calls
     (``cuda_ms``), the wrapper's host work included where it outlasts the
     kernel; ``device_ms`` beside it is the kernel's own device time

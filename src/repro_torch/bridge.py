@@ -19,7 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .models.common import tree_map
+from .tree import tree_map
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:

@@ -11,8 +11,11 @@ launch in :data:`kernel_launches`; on CPU tensors it runs the plain version
 the two: a CUDA call the kernel does not take raises.
 
 The backward pass recomputes the plain version under autograd, as the
-reference's ``_fa_bwd`` does: the forward is exact, so its gradients are
-exact too.  A backward kernel is later work.
+reference's ``_fa_bwd`` does (an XLA VJP of its plain attention, not a
+Pallas kernel): the forward is exact, so its gradients are exact too.  Each
+recompute counts in :data:`backward_recomputes`, apart from
+:data:`plain_calls`, so a training step on the card shows that its forward
+never took the plain version.  A backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from . import ref as _ref
 kernel_launches = 0
 #: calls answered by the plain version (CPU tensors)
 plain_calls = 0
+#: backward passes, each a recompute of the plain version under autograd
+backward_recomputes = 0
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -36,10 +41,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
-    global kernel_launches, plain_calls
+    global kernel_launches, plain_calls, backward_recomputes
     with _count_lock:
         kernel_launches = 0
         plain_calls = 0
+        backward_recomputes = 0
 
 
 def _count(kernel: bool) -> None:
@@ -152,6 +158,9 @@ class _FlashAttention(torch.autograd.Function):
             out = attention_ref(qq, kk, vv, scale=scale, causal=causal,
                                 window=window, softcap=softcap)
             gq, gk, gv = torch.autograd.grad(out, (qq, kk, vv), g)
+        global backward_recomputes
+        with _count_lock:
+            backward_recomputes += 1
         return gq, gk, gv, None, None, None, None
 
 

@@ -10,10 +10,12 @@ norms compute in float32 and cast back, rotary computes in float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,17 +31,6 @@ class P:
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
-
-
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested dict/list tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
 
 
 def stack_spec(spec_tree, n: int, axis_name: str = "layers"):
@@ -140,6 +131,6 @@ def softplus(x):
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-__all__ = ["P", "tree_map", "stack_spec", "init_param", "init_tree",
+__all__ = ["P", "stack_spec", "init_param", "init_tree",
            "rms_norm", "layer_norm", "softcap", "rotary", "gelu", "silu",
            "softplus"]

@@ -24,8 +24,9 @@ from . import attention as attn
 from . import mamba2 as m2
 from . import rglru as rg
 from .common import (P, gelu, init_tree, layer_norm, rms_norm, silu, softcap,
-                     stack_spec, tree_map)
+                     stack_spec)
 from ..configs.config import ModelCfg
+from ..tree import tree_map
 
 Desc = Tuple[str, str]  # (mixer kind, mlp kind)
 

@@ -1,3 +1,5 @@
-from .step import make_prefill_step, make_serve_step
+from .step import (make_prefill_step, make_serve_step, make_train_step,
+                   value_and_grad)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["make_prefill_step", "make_serve_step", "make_train_step",
+           "value_and_grad"]

@@ -1,13 +1,81 @@
-"""Step builders for serving: prefill_step and serve_step.
+"""Step builders: train_step (microbatch accumulation), prefill_step,
+serve_step.
 
-The counterpart of ``repro.train.step``; ``make_train_step`` comes with
-the training slice of the port.
+The counterpart of ``repro.train.step``.  The port's model reads its own
+parameters (``model.params``), so :func:`value_and_grad` installs the tree
+it is given in a model object of its own and takes gradients with
+``torch.autograd.grad`` over its leaves.  The reference's ``constrain`` is
+the identity on one device and is dropped; its ``remat`` is not ported
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from ..optim import Optimizer
+from ..tree import tree_map
+
+
+def value_and_grad(model, params, batch
+                   ) -> Tuple[Tuple[torch.Tensor, Dict], Any]:
+    """``((loss, metrics), grads)`` of ``model.loss(batch)`` at
+    ``params`` (a tree of tensors), as ``jax.value_and_grad`` of the
+    reference's loss: the tree goes into a model object of its own
+    (``model`` lends only its config), so a caller that installs other
+    parameters in ``model`` meanwhile does not reach this call.
+    ``grads`` has the tree's structure and each leaf's dtype, and nothing
+    keeps the graph alive."""
+    m = type(model)(model.cfg).set_params(params)
+    tree = m.params.to_dict()
+    leaves = []
+    tree_map(leaves.append, tree)
+    loss, metrics = m.loss(batch)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            tree_map(lambda _: next(grads), tree))
+
+
+def make_train_step(model, opt: Optimizer, *, microbatches: int = 1,
+                    acc_dtype=torch.float32) -> Callable:
+    """Returns train_step(params, opt_state, batch, step) ->
+    (params, opt_state, metrics).
+
+    microbatches > 1: gradient accumulation over batch slices in
+    ``acc_dtype`` (peak activation memory divides by the accumulation
+    factor).  bfloat16 halves the accumulator's bytes at the cost of ~3
+    mantissa bits across the accumulation sum."""
+
+    def train_step(params, opt_state, batch, step):
+        if microbatches == 1:
+            (loss, metrics), grads = value_and_grad(model, params, batch)
+        else:
+            def split(x, i):
+                b = x.shape[0]
+                if b % microbatches:
+                    raise ValueError(f"batch {b} does not split into "
+                                     f"{microbatches} microbatches")
+                n = b // microbatches
+                return x[i * n:(i + 1) * n]
+
+            g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                                   device=p.device), params)
+            l_sum = 0.0
+            for i in range(microbatches):
+                mb = {k: split(v, i) for k, v in batch.items()}
+                (loss, _m), g = value_and_grad(model, params, mb)
+                g_sum = tree_map(lambda a, b_: a + b_.to(acc_dtype), g_sum, g)
+                l_sum = l_sum + loss
+            grads = tree_map(lambda g: g / microbatches, g_sum)
+            loss = l_sum / microbatches
+            metrics = {"ce": loss}
+        new_params, new_state, opt_metrics = opt.update(
+            grads, opt_state, params, step)
+        out = {"loss": loss, **metrics, **opt_metrics}
+        return new_params, new_state, out
+
+    return train_step
 
 
 def make_prefill_step(model, *, max_len: Optional[int] = None) -> Callable:

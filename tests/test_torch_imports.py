@@ -3,13 +3,18 @@ JAX package, and its entry points never carry on on the CPU unasked."""
 import os
 import subprocess
 import sys
+import warnings
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ARCHS, reduce_cfg            # noqa: E402
+from repro_torch.data import DataCfg                         # noqa: E402
+from repro_torch.models import build_model                   # noqa: E402
 from repro_torch.net.launch import ProcessGroup              # noqa: E402
+from repro_torch.optim import OptCfg                         # noqa: E402
+from repro_torch.runtime_dist import trainer as rtrainer     # noqa: E402
 from repro_torch.serve import (LoadSpec, SequentialEngine,   # noqa: E402
                                ServeEngine, run_sequential, run_serve,
                                serve_program)
@@ -32,7 +37,13 @@ for name in ("repro_torch.models.mamba2", "repro_torch.kernels.ssd.ops",
              "repro_torch.kernels.rglru.ops",
              "repro_torch.kernels.rglru.ref", "repro_torch.net",
              "repro_torch.net.frames", "repro_torch.net.socket_transport",
-             "repro_torch.net.bootstrap", "repro_torch.net.launch"):
+             "repro_torch.net.bootstrap", "repro_torch.net.launch",
+             "repro_torch.data", "repro_torch.data.synthetic",
+             "repro_torch.optim", "repro_torch.optim.optimizers",
+             "repro_torch.optim.schedules", "repro_torch.checkpoint",
+             "repro_torch.checkpoint.store", "repro_torch.runtime_dist",
+             "repro_torch.runtime_dist.trainer", "repro_torch.train.step",
+             "repro_torch.tree"):
     assert name in names, name
 """
 
@@ -43,10 +54,22 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 42      # configs, runtime, net, models, kernels, serve
+    # configs, runtime, net, models, kernels, serve, data, optim,
+    # checkpoint, train, runtime_dist
+    assert n_modules >= 51
 
 
 CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
+DATA = DataCfg(vocab=CFG.vocab, seq=16, global_batch=2)
+TRAINER = rtrainer.TrainerCfg(steps=1)
+
+
+def _deprecated(fn):
+    """Call a deprecated v1 helper (its warning is not under test)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return fn()
+
 ENTRY_POINTS = {
     "ServeEngine": lambda: ServeEngine(CFG, slots=1),
     "SequentialEngine": lambda: SequentialEngine(CFG),
@@ -59,6 +82,14 @@ ENTRY_POINTS = {
     "run_serve_recurrentgemma": lambda: run_serve(
         arch="recurrentgemma-9b", reduced=False, load=LoadSpec(requests=1)),
     "run_sequential": lambda: run_sequential(CFG, []),
+    "EventDrivenTrainer": lambda: rtrainer.EventDrivenTrainer(
+        build_model(CFG), DATA, OptCfg(), TRAINER),
+    "trainer_program": lambda: rtrainer.trainer_program(
+        CFG, DATA, OptCfg(), TRAINER),
+    "distributed_train": lambda: _deprecated(
+        lambda: rtrainer.distributed_train(2, CFG, DATA, OptCfg(), TRAINER,
+                                           n_procs=2)),
+    "trainer_cli": lambda: rtrainer._cli(["--steps", "1"]),
 }
 
 
