@@ -8,10 +8,12 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Four main paths are driven, each at full width and
-depth: serving gemma3-1b (flash attention), mamba2-370m (the SSD scan) and
+raise on failure.  Five main paths are driven, each at full width and
+depth: serving gemma3-1b (flash attention), mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
-layers), and training gemma3-1b (flash attention in every forward):
+layers) and granite-moe-1b-a400m (flash attention at 16 heads, 8 KV heads
+of 64, and the MoE layer), and training gemma3-1b (flash attention in
+every forward):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -21,7 +23,8 @@ layers), and training gemma3-1b (flash attention in every forward):
    not spill;
 3. the flash kernel against its plain PyTorch version on the card, on the
    reference's test cases, ragged tails and the serving paths' shapes
-   (gemma3-1b's and recurrentgemma-9b's), with CUDA-event times of the
+   (gemma3-1b's, recurrentgemma-9b's, the training forward's and
+   granite-moe-1b-a400m's), with CUDA-event times of the
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick only);
 4. gemma3-1b with seeded random weights: prefill through the kernel
@@ -86,7 +89,32 @@ layers), and training gemma3-1b (flash attention in every forward):
     peak device memory and peak RSS; then float32 runs, the kernel path
     against the plain path (loss history and weights), with a fault
     planted in the plain path and one that skips the grad average, each of
-    which the gate must reject.
+    which the gate must reject;
+20. granite-moe-1b-a400m: prefill through the kernel against prefill
+    through plain attention, the plain path's routers held to the kernel
+    path's expert choices (the tokens whose own top-8 differs counted),
+    bf16 and float32 at the port's init (reported: there float32
+    rounding alone decides the routers' top-8, as the plain path's own
+    float32 floor shows) and float32 with every matrix at the fan-in of
+    the dims it contracts (gated), then one 4-slot decode step from four
+    such prefills' caches, the same check; each call's dropped router
+    assignments printed;
+21. granite-moe-1b-a400m's main path: event-driven serving in bf16,
+    counted as in phase 5;
+22. float32 serving of granite-moe-1b-a400m (phase 20's gated weights),
+    gated by replay: the served run records its engine calls (prefill,
+    attach, step) with the tokens each returned, and a plain-attention
+    engine with the same weights replays them fed the served tokens, so
+    every step sees the served batch (a capacity-limited MoE's output
+    depends on the batch, so served tokens need not equal the sequential
+    baseline's); every token must equal the replay's or differ at a top-2
+    gap under NEAR_TIE, and the gate must reject faults planted in the
+    replay's MoE (top-k weights not renormalised, capacity ignored); the
+    sequential baseline's differences and the decode steps that dropped
+    an assignment are reported;
+23. where granite-moe-1b-a400m's serving time goes, as in phase 7, with
+    the MoE steps' (route, dispatch, experts, combine) share of device
+    time.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -99,6 +127,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -198,6 +227,18 @@ NEAR_TIE = 1e-3           # a differing token is a near-tie below this gap
 # the serving path's flash shapes on recurrentgemma-9b's 12 local layers:
 # B=1, 16 heads, 1 KV head, head dim 256, window 2048, bf16
 RG_FA_SHAPE = dict(H=16, KH=1, D=256, window=2048)
+
+GRANITE = "granite-moe-1b-a400m"
+# the serving path's flash shapes on granite-moe-1b-a400m's 24 global
+# layers: B=1, 16 heads, 8 KV heads (GQA group 2), head dim 64, bf16
+GRANITE_FA_SHAPE = dict(H=16, KH=8, D=64, window=None)
+# phase 20's 4-slot decode step runs from the caches of prefills of these
+# lengths (the last reaches position 511 of MAX_LEN)
+DECODE_S = (100, 256, 384, 511)
+# faults planted in phase 22's replay engine (its MoE layers): the top-k
+# weights left unnormalised, and the capacity ignored (C = T: nothing
+# dropped); the gate must reject both and pass the fault-free control
+MOE_FAULTS = ("unnormalised_weights", "no_capacity")
 
 RG_SOURCE = "src/repro_torch/csrc/rglru_fwd.cu"
 RG_REPLACES = "src/repro/kernels/rglru/kernel.py:59"
@@ -425,6 +466,8 @@ def phase_kernels(out):
               for S in PATH_S for w in PATH_WINDOWS]
     cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=RGEMMA,
                    **RG_FA_SHAPE) for S in PATH_S]
+    cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=GRANITE,
+                   **GRANITE_FA_SHAPE) for S in PATH_S]
     # the training forward's calls (phase 19): each rank's 2 x 512 tokens
     cases += [dict(S=TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
                    softcap=None, dtype="bfloat16",
@@ -548,7 +591,14 @@ def phase_model(out, arch):
     it.  For the RG-LRU path the gate is LOGIT_TOL, and the control and
     RG_LOGIT_FAULTS are planted in its plain scan the same way; its bf16 run
     is at the port's init and its float32 runs at the weight sets named
-    beside RG_LOGIT_FAULTS."""
+    beside RG_LOGIT_FAULTS.  For granite-moe-1b-a400m the plain path
+    routes every token as the kernel path did (``_routed_as``; the tokens
+    whose own top-k differs are counted as ``routing_flips``), float32
+    is gated at the ``contraction_fan_in`` weights and reported at the
+    port's init at the longest S only, where float32 rounding alone
+    decides its tokens (see ``_contraction_fan_in``; ``plain_f64_floor``
+    shows it), and the gated run and bf16 also run one 4-slot decode step
+    (``_decode_check``)."""
     import torch
     res = {}
     runs = [("float32", "seeded"), ("bfloat16", "seeded")]
@@ -557,8 +607,16 @@ def phase_model(out, arch):
     if arch == RGEMMA:
         runs = [("bfloat16", "seeded"), ("float32", "layer_fan_in"),
                 ("float32", "griffin_init")]
+    if arch == GRANITE:
+        runs.append(("float32", "contraction_fan_in"))
     for dtype, weights in runs:
+        # float32 at granite's init is reported, not gated, at one S
+        port_init_f32 = (arch, dtype, weights) == (GRANITE, "float32",
+                                                   "seeded")
+        logit_gate = dtype == "float32" and not port_init_f32
         kmodel = _full_model(arch, dtype, "kernel")
+        if weights == "contraction_fan_in":
+            _contraction_fan_in(kmodel)
         if weights == "mamba2_init":
             _mamba2_init(kmodel.params.to_dict())
         if weights in ("layer_fan_in", "griffin_init"):
@@ -573,13 +631,15 @@ def phase_model(out, arch):
                               chunk=kmodel.cfg.ssm.chunk // 2)
                   if arch == MAMBA and dtype == "float32" else None)
         g = torch.Generator(device="cuda").manual_seed(1)
-        for S in PREFILL_S:
+        for S in PREFILL_S[-1:] if port_init_f32 else PREFILL_S:
             toks = torch.randint(0, kmodel.cfg.vocab, (1, S), generator=g,
                                  device="cuda")
             before = _counts()
-            lk = _prefill(kmodel, toks)
+            with moe_drops() as drops, _moe_choices() as choices:
+                lk = _prefill(kmodel, toks)
             launched, plain = _since(before)
-            lr = _prefill(rmodel, toks)
+            with _routed_as(choices) as flips:
+                lr = _prefill(rmodel, toks)
             diff = float((lk - lr).abs().max())
             same = int(lk.argmax()) == int(lr.argmax())
             floor = None
@@ -610,6 +670,14 @@ def phase_model(out, arch):
                    "kernel_launches": launched, "plain_calls": plain,
                    "prefill_ms_kernel_path": t_k,
                    "prefill_ms_plain_path": t_r}
+            if arch == GRANITE:
+                row.update(moe_dropped=sum(drops),
+                           moe_assignments=_assignments(kmodel.cfg, S),
+                           routing_flips=sum(flips), gated=logit_gate)
+                if dtype == "float32" and S == PREFILL_S[-1]:
+                    with _routed_as(choices), _f64_attention():
+                        lf = _prefill(rmodel, toks)
+                    row["plain_f64_floor"] = float((lf - lr).abs().max())
             log("model " + json.dumps(row))
             res[f"{dtype}_S{S}_{weights}"] = row
             if not torch.isfinite(lk).all():
@@ -618,7 +686,7 @@ def phase_model(out, arch):
                 raise AssertionError(f"prefill launched {launched} and "
                                      f"called plain versions {plain}, not "
                                      f"{expected} launches and none")
-            if dtype == "float32" and (diff > gate or not same):
+            if logit_gate and (diff > gate or not same):
                 raise AssertionError(f"float32 kernel path disagrees: {row}")
             missed = [f for f, r in faults.items() if r["gated"]
                       and r["rejected"] == (f == control)]
@@ -626,9 +694,204 @@ def phase_model(out, arch):
                 raise AssertionError(f"the float32 gate does not tell the "
                                      f"control from planted faults: "
                                      f"{missed}: {row}")
+        if arch == GRANITE and not port_init_f32:
+            res[f"{dtype}_decode_b4_{weights}"] = _decode_check(
+                kmodel, rmodel, weights, g, logit_gate)
         del kmodel, rmodel, cmodel
         _free()
     out[f"model_{arch}"] = res
+
+
+def _assignments(cfg, T):
+    """Router assignments of one call over T tokens: T x top-k x the MoE
+    layers."""
+    layers = len(cfg.layer_kinds()) - cfg.moe.first_dense
+    return T * cfg.moe.top_k * layers
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Count, while open, the router assignments each MoE dispatch drops:
+    one int a layer call, appended to the list it yields.  It syncs the
+    card once a layer: never open around a timed call."""
+    from repro_torch.models import moe
+    counts, dispatch = [], moe.dispatch
+
+    def counted(*a, **kw):
+        xg, disp = dispatch(*a, **kw)
+        counts.append(int((~disp.keep).sum()))
+        return xg, disp
+    moe.dispatch = counted
+    try:
+        yield counts
+    finally:
+        moe.dispatch = dispatch
+
+
+@contextlib.contextmanager
+def _f64_attention():
+    """While open, the plain attention computes in float64 and rounds
+    back: the same function, rounded elsewhere, so a plain-path result
+    under it differs from the float32 plain path's by that path's own
+    float32 floor."""
+    from repro_torch.models import attention
+    plain = attention.ref_attention
+
+    def f64(q, k, v, **kw):
+        return plain(q.double(), k.double(), v.double(), **kw).to(q.dtype)
+    attention.ref_attention = f64
+    try:
+        yield
+    finally:
+        attention.ref_attention = plain
+
+
+@contextlib.contextmanager
+def _moe_choices():
+    """Record, while open, each MoE layer call's expert choices (T, k),
+    in call order, into the list it yields."""
+    from repro_torch.models import moe
+    choices, route = [], moe.route
+
+    def recorded(*a, **kw):
+        weights, gidx, probs = route(*a, **kw)
+        choices.append(gidx)
+        return weights, gidx, probs
+    moe.route = recorded
+    try:
+        yield choices
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def _routed_as(choices):
+    """While open, each MoE layer call sends every token to the experts
+    that ``choices`` (``_moe_choices`` of the same calls on another path)
+    holds for it, weighted by this call's own softmax probabilities as
+    the router weights its own choice.  A token whose own top-k differs
+    (a routing flip: a near-tie that the two paths' rounding decides
+    apart) is counted, one int a layer call into the list it yields.  Two
+    paths compared under it then differ by what feeds the routers, not by
+    a discrete choice that one ulp can turn.  Softmax router only."""
+    import torch
+    from repro_torch.models import moe
+    route, want, flips = moe.route, iter(choices), []
+
+    def routed(p, xf, cfg):
+        weights, gidx, probs = route(p, xf, cfg)
+        forced = next(want)
+        flip = (torch.sort(gidx, dim=-1).values
+                != torch.sort(forced, dim=-1).values).any(-1)
+        flips.append(int(flip.sum()))
+        if flips[-1]:
+            w = torch.gather(probs, 1, forced)
+            w = w / (torch.sum(w, dim=1, keepdim=True) + 1e-20)
+            gidx = torch.where(flip[:, None], forced, gidx)
+            weights = torch.where(flip[:, None], w, weights)
+        return weights, gidx, probs
+    moe.route = routed
+    try:
+        yield flips
+    finally:
+        moe.route = route
+
+
+def _contraction_fan_in(model):
+    """Scale, in place, every leaf that the init draws at its fan-in
+    (``normal``, no scale) to the fan-in of the dims its product contracts,
+    as a model's own init would draw it: the init's rule (the
+    reference's) takes the fan-in from a leaf's first axis, which is the
+    layers axis of a stacked leaf and the expert axis of an expert stack.
+    Batch axes (``layers``, ``expert``) are left out; a leaf whose last
+    axis is ``embed`` writes the residual stream and contracts all its
+    other axes (``wo``: heads x head dim; an MLP's ``wd``), any other
+    contracts its first (``wq``/``wk``/``wv``, ``wg``/``wu``: d_model).
+    At granite-moe-1b-a400m's init (24 layers, 32 experts) the attention
+    products come out 6.5x too large, so its softmax and its routers'
+    top-8 turn on float32 rounding alone (phase 20's ``plain_f64_floor``);
+    here no routing decision turns on it."""
+    import math
+    import torch
+    from repro_torch.tree import tree_map
+
+    def scale(spec, leaf):
+        if spec.init != "normal" or spec.scale is not None:
+            return
+        dims = [(n, a) for n, a in zip(spec.shape, spec.axes)
+                if a not in ("layers", "expert")]
+        fan_in = (math.prod(n for n, _ in dims[:-1])
+                  if dims[-1][1] == "embed" else dims[0][0])
+        with torch.no_grad():
+            leaf.mul_(math.sqrt(spec.shape[0] / fan_in))
+    tree_map(scale, model.param_specs(), model.params.to_dict())
+
+
+def _decode_check(kmodel, rmodel, weights, g, gated):
+    """One 4-slot decode step from the caches of four prefills (DECODE_S),
+    through the kernel path's prefills and through the plain path's, the
+    same tokens fed to both (the kernel path's first tokens) and the
+    plain path routed as the kernel path (``_routed_as``): the step's
+    last logits, gated (``gated``) as a prefill's are.  In float32 the
+    plain path also runs under ``_f64_attention``: its floor."""
+    import torch
+    from repro_torch.serve.engine import _make_splice
+    prompts = [torch.randint(0, kmodel.cfg.vocab, (1, S), generator=g,
+                             device="cuda") for S in DECODE_S]
+    pos = torch.tensor([[S] for S in DECODE_S], dtype=torch.int32,
+                       device="cuda")
+    logits, flips, first, dropped = {}, {}, None, None
+    runs = [("kernel", kmodel, None), ("plain", rmodel, None)]
+    if kmodel.cfg.dtype == "float32" and gated:
+        runs.append(("plain_f64", rmodel, _f64_attention))
+    for name, model, attention_ctx in runs:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.inference_mode())
+            if attention_ctx is not None:
+                stack.enter_context(attention_ctx())
+            if name == "kernel":
+                choices = stack.enter_context(_moe_choices())
+            else:
+                flips[name] = stack.enter_context(_routed_as(choices))
+            caches = model.init_cache(len(prompts), MAX_LEN)
+            splice = _make_splice(model, len(prompts))
+            lasts = []
+            for slot, toks in enumerate(prompts):
+                lg, pc = model.prefill(toks, model.init_cache(1, MAX_LEN))
+                lasts.append(lg[0, -1])
+                splice(caches, pc, slot)
+            if first is None:
+                first = torch.stack(lasts).argmax(-1)[:, None]
+            with moe_drops() as drops:
+                lg, _ = model.decode_step(caches, first, pos)
+            if dropped is None:
+                dropped = sum(drops)
+            logits[name] = lg[:, -1].float()
+            del caches
+    lk, lr = logits["kernel"], logits["plain"]
+    dtype = kmodel.cfg.dtype
+    layers = len(kmodel.cfg.layer_kinds()) - kmodel.cfg.moe.first_dense
+    row = {"arch": kmodel.cfg.name, "dtype": dtype, "weights": weights,
+           "call": "decode_step_b4", "positions": list(DECODE_S),
+           "max_logit_diff": float((lk - lr).abs().max()),
+           "same_tokens": bool((lk.argmax(-1) == lr.argmax(-1)).all()),
+           "max_abs_logit": float(lr.abs().max()), "gate": LOGIT_TOL,
+           "plain_f64_floor": (float((logits["plain_f64"] - lr).abs().max())
+                               if "plain_f64" in logits else None),
+           # tokens of the four prefills and the step whose own routing
+           # differs from the kernel path's, and the step's alone
+           "routing_flips": {n: sum(f) for n, f in flips.items()},
+           "routing_flips_in_step": {n: sum(f[-layers:])
+                                     for n, f in flips.items()},
+           "gated": gated, "moe_dropped": dropped,
+           "moe_assignments": _assignments(kmodel.cfg, len(prompts))}
+    log("model " + json.dumps(row))
+    if not torch.isfinite(lk).all():
+        raise AssertionError(f"non-finite decode logits: {row}")
+    if gated and (row["max_logit_diff"] > LOGIT_TOL
+                  or not row["same_tokens"]):
+        raise AssertionError(f"float32 decode step disagrees: {row}")
+    return row
 
 
 def _layer_fan_in(model):
@@ -863,13 +1126,14 @@ def _top2_gap(cfg, prompt, tokens, step, params=None):
     return float(top[0] - top[1])
 
 
-def _layer_fan_in_numpy(arch):
-    """The port's float32 init of ``arch`` with every stacked leaf at one
-    layer's fan-in (``_layer_fan_in``), as host numpy arrays: a parameter
-    tree the serving entry points take as ``params``."""
+def _rescaled_numpy(arch, rescale):
+    """The port's float32 init of ``arch`` rescaled in place by
+    ``rescale`` (``_layer_fan_in``, ``_contraction_fan_in``), as host
+    numpy arrays: a parameter tree the serving entry points take as
+    ``params``."""
     from repro_torch import bridge
     model = _full_model(arch, "float32", "kernel")
-    _layer_fan_in(model)
+    rescale(model)
     tree = bridge.params_to_numpy(model)
     del model
     _free()
@@ -887,7 +1151,8 @@ def phase_parity(out, arch):
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
     cfg = ARCHS[arch].cfg.replace(dtype="float32")
-    params = _layer_fan_in_numpy(arch) if arch == RGEMMA else None
+    params = _rescaled_numpy(arch, _layer_fan_in) if arch == RGEMMA \
+        else None
     res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                     max_len=MAX_LEN, load=load, device="cuda",
                     dtype="float32", params=params)
@@ -974,6 +1239,8 @@ def phase_profile(out, arch):
         res[name] = {"wall_ms": wall, "device_ms": device_ms,
                      "device_busy_share": device_ms / wall,
                      "kernels": n_kernels, "top_kernels_ms_count": top}
+        if arch == GRANITE:
+            res[name]["moe_steps"] = _moe_step_times(fn, device_ms)
         log(f"profile {arch} {name} " + json.dumps(res[name]))
     if not res["prefill_384"]["device_ms"] > 0:
         raise AssertionError("the profiler saw no device time")
@@ -994,6 +1261,53 @@ def phase_profile(out, arch):
     out[f"profile_{arch}"] = res
 
 
+MOE_STEPS = ("route", "dispatch", "experts", "combine")
+
+
+def _moe_step_times(fn, device_ms):
+    """Device ms of each MoE step (``moe.route``, ``dispatch`` (the table
+    and the gather of the expert inputs), ``experts``, ``combine``) summed
+    over the layers of one call of ``fn``, and its share of ``device_ms``
+    (the same call profiled without the ranges): a second profile with
+    each step wrapped in a ``record_function`` range, whose device time
+    is that of the kernels launched inside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+    saved = {n: getattr(moe, n) for n in MOE_STEPS}
+
+    def ranged(n, f):
+        def call(*a, **kw):
+            with record_function(f"moe.{n}"):
+                return f(*a, **kw)
+        return call
+    for n, f in saved.items():
+        setattr(moe, n, ranged(n, f))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for n, f in saved.items():
+            setattr(moe, n, f)
+    ms = {n: 0.0 for n in MOE_STEPS}
+    calls = {n: 0 for n in MOE_STEPS}
+    for e in prof.key_averages():
+        n = e.key[len("moe."):] if e.key.startswith("moe.") else None
+        if n in ms and e.device_type == DeviceType.CPU:
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = e.cuda_time_total
+            ms[n] += float(t) / 1e3
+            calls[n] += int(e.count)
+    return {"device_ms": ms, "calls": calls,
+            "share_of_device_ms": {n: v / device_ms for n, v in ms.items()},
+            "dispatch_and_combine_share":
+                (ms["dispatch"] + ms["combine"]) / device_ms}
+
+
 def _gate_cost(eng, decode_device_ms):
     """What the float32 gates cost a decode step: every RG-LRU layer casts
     its bf16 W x W ``wa`` and ``wi`` to float32 at each call, as the
@@ -1012,6 +1326,216 @@ def _gate_cost(eng, decode_device_ms):
             "cast_and_product_ms": gate_ms, "cast_bytes": 6 * n,
             "cast_bound_ms": 6 * n / PEAK_BYTES * 1e3,
             "share_of_decode_device_ms": gate_ms / decode_device_ms}
+
+
+@contextlib.contextmanager
+def moe_fault(fault):
+    """Plant one of MOE_FAULTS in the MoE module while open (None: none):
+    ``unnormalised_weights`` gives each token's top-k softmax
+    probabilities as its weights, ``no_capacity`` a capacity of T slots
+    an expert, so no assignment is dropped."""
+    import torch
+    from repro_torch.models import moe
+    saved = moe.route, moe.capacity
+
+    def unnormalised(p, xf, cfg):
+        _, gidx, probs = saved[0](p, xf, cfg)
+        return torch.gather(probs, 1, gidx), gidx, probs
+    if fault == "unnormalised_weights":
+        moe.route = unnormalised
+    elif fault == "no_capacity":
+        moe.capacity = lambda T, k, n_experts, factor: T
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        moe.route, moe.capacity = saved
+
+
+@contextlib.contextmanager
+def record_engine_calls():
+    """Record, while open, the calls that an in-proc server makes on its
+    :class:`ServeEngine`, with the tokens each returned, into the list it
+    yields: ``("prefill", prompt, first)`` and ``("attach", slot,
+    prompt_len, first)`` at each admission, ``("step", live, tokens)``
+    at each decode step (``tokens``: the whole slot column).  Attach and
+    step run under the server's lock, so the list is in the order that
+    changed the batch; a prefill touches no shared state and is recorded
+    beside the attach that consumes its cache.  The engine's warm-up is
+    left out."""
+    import threading
+    from repro_torch.serve.engine import ServeEngine
+    saved = {n: getattr(ServeEngine, n)
+             for n in ("prefill", "attach", "step", "warmup")}
+    calls, prompts, lock = [], {}, threading.Lock()
+
+    def prefill(self, prompt):
+        first, pcache = saved["prefill"](self, prompt)
+        with lock:
+            prompts[id(pcache)] = list(prompt)
+        return first, pcache
+
+    def attach(self, slot, prompt_len, first_token, pcache):
+        saved["attach"](self, slot, prompt_len, first_token, pcache)
+        with lock:
+            prompt = prompts.pop(id(pcache))
+        calls.extend([("prefill", prompt, int(first_token)),
+                      ("attach", slot, prompt_len, int(first_token))])
+
+    def step(self, live):
+        out = saved["step"](self, live)
+        calls.append(("step", list(live), [int(t) for t in out]))
+        return out
+
+    def warmup(self, *a, **kw):
+        saved["warmup"](self, *a, **kw)
+        calls.clear()
+        prompts.clear()
+    for n, f in (("prefill", prefill), ("attach", attach), ("step", step),
+                 ("warmup", warmup)):
+        setattr(ServeEngine, n, f)
+    try:
+        yield calls
+    finally:
+        for n, f in saved.items():
+            setattr(ServeEngine, n, f)
+
+
+def replay_engine_calls(engine, calls):
+    """Drive ``engine`` (a fresh :class:`ServeEngine` with the served
+    engine's slots and ``max_len``) through ``calls``
+    (``record_engine_calls``) with its own prefill, attach and step, fed
+    the served tokens: each attach gets the served first token, and after
+    each step every live slot's next input is the served token, so a
+    token that differs at one call does not carry into the next, and
+    every step sees the served batch, dead rows included.  Yields
+    ``(call, rows)`` after each call: one row for a prefill, one per live
+    slot for a step, none for an attach; each row holds ``served``,
+    ``replayed`` (the argmax of the engine's logits at that call) and
+    ``top2_gap``."""
+    import torch
+    model, seen = engine.model, []
+
+    def kept(fn):
+        def call(*a, **kw):
+            logits, caches = fn(*a, **kw)
+            seen.append(logits[:, -1].float())
+            return logits, caches
+        return call
+    model.prefill = kept(model.prefill)
+    model.decode_step = kept(model.decode_step)
+
+    def rows(slots, served):
+        lg = seen.pop()
+        top = torch.topk(lg, 2, dim=-1).values.cpu()
+        arg = torch.argmax(lg, dim=-1).cpu()
+        return [{"slot": s, "served": int(t), "replayed": int(arg[s]),
+                 "top2_gap": float(top[s, 0] - top[s, 1])}
+                for s, t in zip(slots, served)]
+    pcache = None
+    for call in calls:
+        if call[0] == "prefill":
+            _, pcache = engine.prefill(call[1])
+            yield call, rows([0], [call[2]])
+        elif call[0] == "attach":
+            _, slot, prompt_len, first = call
+            engine.attach(slot, prompt_len, first, pcache)
+            pcache = None
+            yield call, []
+        else:
+            _, live, served = call
+            engine.step(live)
+            out = rows(live, [served[s] for s in live])
+            for s in live:
+                engine.tokens[s, 0] = served[s]
+            yield call, out
+
+
+def _replay(cfg, params, calls, fault):
+    """Replay the recorded ``calls`` through a plain-attention engine with
+    ``params`` and ``fault`` planted in its MoE layers (None: the
+    control): the tokens that differ from the served ones, those beyond a
+    near-tie, and the decode steps in which a layer dropped an
+    assignment."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg.replace(attn_impl="ref"), slots=4,
+                      max_len=MAX_LEN, device="cuda", params=params)
+    compared, differing, steps, drop_steps = 0, [], 0, 0
+    with moe_fault(fault), moe_drops() as drops:
+        for i, (call, rows) in enumerate(replay_engine_calls(eng, calls)):
+            compared += len(rows)
+            differing += [dict(r, call=i, kind=call[0]) for r in rows
+                          if r["served"] != r["replayed"]]
+            if call[0] == "step":
+                steps += 1
+                drop_steps += sum(drops) > 0
+            drops.clear()
+    del eng
+    _free()
+    bad = [d for d in differing if not d["top2_gap"] < NEAR_TIE]
+    return {"fault": fault, "compared": compared,
+            "differing": len(differing), "beyond_near_tie": len(bad),
+            "first_differing": differing[:4], "rejected": bool(bad),
+            "decode_steps": steps, "decode_steps_with_drops": drop_steps}
+
+
+def phase_replay(out):
+    """float32 serving of granite-moe-1b-a400m, gated by replaying the
+    served run's engine calls through a plain-attention engine with the
+    same weights, fed the served tokens: the control must pass (every
+    token equal or a near-tie) and each of MOE_FAULTS fail.  Both serve
+    the ``contraction_fan_in`` weights (passed as ``params``): at the
+    port's init float32 rounding alone decides granite's tokens (phase
+    20).  The sequential baseline decodes each request alone (T=1, where
+    top-8 of 32 never collides), so its tokens may differ where the
+    served batch dropped assignments: reported, not gated."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.serve import all_requests, run_sequential, run_serve
+    load = _load()
+    cfg = ARCHS[GRANITE].cfg.replace(dtype="float32")
+    params = _rescaled_numpy(GRANITE, _contraction_fan_in)
+    with record_engine_calls() as calls:
+        res = run_serve(arch=GRANITE, reduced=False, clients=2, slots=4,
+                        max_len=MAX_LEN, load=load, device="cuda",
+                        dtype="float32", params=params)
+    r = res["result"]
+    served = {rec["id"]: rec["tokens"] for rec in r["records"]}
+    del res
+    _free()
+    runs = {str(f): _replay(cfg, params, calls, f)
+            for f in (None,) + MOE_FAULTS}
+    seq = run_sequential(cfg, all_requests(load, 2, cfg.vocab),
+                         max_len=MAX_LEN, realtime=False, device="cuda",
+                         params=params)
+    _free()
+    seq_diff = []
+    for rec in seq:
+        a, b = served[rec["id"]], rec["tokens"]
+        if a != b:
+            seq_diff.append({"id": rec["id"], "first_step": next(
+                (i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b))), "tokens": len(b),
+                "differing": sum(x != y for x, y in zip(a, b))})
+    control = runs["None"]
+    report = {"arch": GRANITE, "dtype": "float32",
+              "weights": "contraction_fan_in", "requests": len(served),
+              "calls": len(calls), "served_steps": r["steps"],
+              "near_tie": NEAR_TIE, "replays": runs,
+              "sequential_requests_differing": len(seq_diff),
+              "sequential_differing": seq_diff}
+    log("replay " + json.dumps(report))
+    checks = {
+        "served == 8": r["served"] == load.requests,
+        "every token compared": control["compared"] == load.requests + sum(
+            len(c[1]) for c in calls if c[0] == "step"),
+        "control passes": not control["rejected"],
+        **{f"{f} rejected": runs[f]["rejected"] for f in MOE_FAULTS},
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"replay checks failed: {failed}")
+    out[f"replay_{GRANITE}"] = report
 
 
 # ------------------------------------------------------------- the SSD scan
@@ -1768,6 +2292,12 @@ PHASES = {
          lambda out: phase_profile(out, RGEMMA)),
     18: ("gemma3-1b serve over sockets", phase_serve_socket),
     19: ("gemma3-1b train (event-driven trainer)", phase_train),
+    20: ("granite-moe-1b-a400m model", lambda out: phase_model(out, GRANITE)),
+    21: ("granite-moe-1b-a400m serve (main path)",
+         lambda out: phase_serve(out, GRANITE)),
+    22: ("granite-moe-1b-a400m float32 serving", phase_replay),
+    23: ("granite-moe-1b-a400m profile",
+         lambda out: phase_profile(out, GRANITE)),
 }
 
 
@@ -1827,6 +2357,16 @@ def kernels_line(out):
                          bound_ms=timed["bound_ms"],
                          bound_by=timed["bound_by"],
                          library_ms=timed["library_ms"])
+        if name == "flash_attention_fwd":
+            # granite-moe-1b-a400m's shape (H=16, KH=8, D=64, no window)
+            # at S=511, timed as the entry's
+            g = next((r for r in rows if r["path"] == GRANITE
+                      and r["S"] == TIMED[0]), None)
+            entry["granite"] = g and {
+                k: g[k] for k in ("B", "S", "H", "KH", "D", "window",
+                                  "dtype", "max_abs_err", "ms",
+                                  "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")}
         if name == "ssd_fwd":
             entry["library"] = "no single PyTorch call computes the SSD scan"
             # the variant the timed shape launched, the main path's

@@ -9,9 +9,10 @@ leaf for leaf.
 
 Mixers ported so far: ``attn`` and ``local`` (GQA, :mod:`.attention`),
 ``ssd`` (Mamba-2, :mod:`.mamba2`) and ``rglru`` (the RecurrentGemma
-recurrent block, :mod:`.rglru`); a layer's MLP half is a dense MLP or, for
-``mlp == "none"`` (Mamba-2), absent.  Other mixers, MoE, MTP and
-encoder-decoder models raise NotImplementedError.
+recurrent block, :mod:`.rglru`); a layer's MLP half is a dense MLP, a
+Mixture-of-Experts layer (:mod:`.moe`; ``dense_big`` for an MoE model's
+leading dense layers) or, for ``mlp == "none"`` (Mamba-2), absent.  Other
+mixers (MLA), MTP and encoder-decoder models raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from torch import nn
 
 from . import attention as attn
 from . import mamba2 as m2
+from . import moe
 from . import rglru as rg
 from .common import (P, gelu, init_tree, layer_norm, rms_norm, silu, softcap,
                      stack_spec)
@@ -106,7 +108,7 @@ MIXER_SPECS = {
     "ssd": m2.mamba2_specs,
     "rglru": rg.rglru_specs,
 }
-_MLPS = ("gated_silu", "gated_gelu", "gelu", "none")
+_MLPS = ("gated_silu", "gated_gelu", "gelu", "none", "moe", "dense_big")
 
 
 def layer_specs(cfg: ModelCfg, desc: Desc) -> Dict[str, Any]:
@@ -119,12 +121,21 @@ def layer_specs(cfg: ModelCfg, desc: Desc) -> Dict[str, Any]:
                           "mix": MIXER_SPECS[mixer](cfg)}
     if mlp_kind != "none":  # mamba2: the block IS the layer, no FFN half
         sp["ln2"] = norm_specs(cfg)
-        sp["mlp"] = mlp_specs(cfg)
+        sp["mlp"] = (moe.moe_specs(cfg) if mlp_kind == "moe"
+                     else mlp_specs(_ff_cfg(cfg, mlp_kind)))
     if cfg.post_norms:
         sp["ln1p"] = norm_specs(cfg)
         if mlp_kind != "none":
             sp["ln2p"] = norm_specs(cfg)
     return sp
+
+
+def _ff_cfg(cfg: ModelCfg, mlp_kind: str) -> ModelCfg:
+    """The config of a dense MLP half: an MoE model's leading dense layers
+    (``dense_big``) take ``d_ff_dense``."""
+    if mlp_kind == "dense_big" and cfg.moe is not None:
+        return cfg.replace(d_ff=cfg.moe.d_ff_dense)
+    return cfg
 
 
 def mixer_apply(kind: str, p, x, *, cfg: ModelCfg, positions, cache,
@@ -141,6 +152,8 @@ def mixer_apply(kind: str, p, x, *, cfg: ModelCfg, positions, cache,
 
 def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
                 fresh_cache: bool = False):
+    """One layer.  Returns (x, cache, aux): aux is the MoE layer's
+    load-balance loss, None for other layers (the reference's zero)."""
     mixer, mlp_kind = desc
     h = norm_apply(lp["ln1"], x, cfg)
     mix, new_cache = mixer_apply(mixer, lp["mix"], h, cfg=cfg,
@@ -149,12 +162,17 @@ def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
     if cfg.post_norms:
         mix = norm_apply(lp["ln1p"], mix, cfg)
     x = x + mix
+    aux = None
     if mlp_kind == "none":
-        return x, new_cache
-    out = mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg), cfg)
+        return x, new_cache, aux
+    h = norm_apply(lp["ln2"], x, cfg)
+    if mlp_kind == "moe":
+        out, aux = moe.moe_apply(lp["mlp"], h, cfg=cfg)
+    else:
+        out = mlp_apply(lp["mlp"], h, _ff_cfg(cfg, mlp_kind))
     if cfg.post_norms:
         out = norm_apply(lp["ln2p"], out, cfg)
-    return x + out, new_cache
+    return x + out, new_cache, aux
 
 
 def mixer_cache_spec(cfg: ModelCfg, kind: str, batch: int, max_len: int):
@@ -208,19 +226,30 @@ def _index(tree, i: int):
 
 # ---------------------------------------------------------------- the model
 class TransformerLM(nn.Module):
-    """Decoder-only LM (the dense attention families, Mamba-2 and
-    RecurrentGemma)."""
+    """Decoder-only LM (the dense attention families, Mamba-2,
+    RecurrentGemma and Granite-MoE)."""
 
     def __init__(self, cfg: ModelCfg):
         super().__init__()
-        if cfg.encdec or cfg.moe is not None or cfg.mtp_depth:
+        if cfg.encdec or cfg.mtp_depth:
             raise NotImplementedError(_LATER.format(
-                "encoder-decoder, MoE and MTP models"))
+                "encoder-decoder and MTP models"))
         self.cfg = cfg
-        self.descs = [(k, cfg.mlp) for k in cfg.layer_kinds()]
+        self.descs = self._descs()
         self.segments = build_segments(self.descs)
         self.params: Optional[ParamTree] = None
         self._layer_views: Optional[list] = None
+
+    def _descs(self) -> List[Desc]:
+        cfg = self.cfg
+        descs = []
+        for i, k in enumerate(cfg.layer_kinds()):
+            if cfg.moe is not None:
+                mlp_kind = "dense_big" if i < cfg.moe.first_dense else "moe"
+            else:
+                mlp_kind = cfg.mlp
+            descs.append((k, mlp_kind))
+        return descs
 
     @property
     def dtype(self) -> torch.dtype:
@@ -293,12 +322,14 @@ class TransformerLM(nn.Module):
         return x
 
     def forward(self, x, *, positions, caches=None, fresh_cache=False):
-        """x: embedded inputs (B, S, d).  Returns (hidden, caches, aux).
+        """x: embedded inputs (B, S, d).  Returns (hidden, caches, aux):
+        aux is the layers' MoE load-balance losses summed in layer order.
 
         caches: list per segment of per-unit cache trees (with a leading
         ``layers`` axis when the segment repeats), updated in place, or
         None for training."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, ui, r, lp in self.layer_params():
             unit, reps = self.segments[si]
             cache = None
@@ -306,11 +337,12 @@ class TransformerLM(nn.Module):
                 cache = caches[si][ui]
                 if reps > 1:
                     cache = _index(cache, r)
-            x, _ = layer_apply(lp, x, cfg=cfg, desc=unit[ui],
-                               positions=positions, cache=cache,
-                               fresh_cache=fresh_cache)
+            x, _, a = layer_apply(lp, x, cfg=cfg, desc=unit[ui],
+                                  positions=positions, cache=cache,
+                                  fresh_cache=fresh_cache)
+            if a is not None:
+                aux = aux + a
         x = norm_apply(self.params["final_norm"], x, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, caches, aux
 
     def logits(self, hidden):

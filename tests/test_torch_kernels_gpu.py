@@ -15,8 +15,9 @@ from repro_torch.kernels.ssd import ops as tssd              # noqa: E402
 from repro_torch.kernels.ssd import ref as tssd_ref          # noqa: E402
 
 # (S, H, KH, D, window, softcap, dtype): the reference's FA_CASES, ragged
-# tails, and the serving path's shapes (gemma3-1b: 4 heads, 1 KV head,
-# head dim 256, window 512 on local layers)
+# tails, and the serving paths' shapes (gemma3-1b: 4 heads, 1 KV head,
+# head dim 256, window 512 on local layers; granite-moe-1b-a400m: 16 heads,
+# 8 KV heads of 64, no window)
 CASES = [
     (256, 4, 4, 64, None, None, "float32"),
     (256, 4, 1, 64, None, None, "float32"),
@@ -30,6 +31,8 @@ CASES = [
     (1, 4, 1, 256, 512, None, "bfloat16"),
     (511, 4, 1, 256, 512, None, "bfloat16"),
     (511, 4, 1, 256, None, None, "bfloat16"),
+    (100, 16, 8, 64, None, None, "bfloat16"),
+    (511, 16, 8, 64, None, None, "bfloat16"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -404,3 +407,57 @@ def test_trainer_step_kernel_path_matches_plain(cuda):
                                    atol=TRAIN_TOL, err_msg=key)
     for key, v in flatten_params(kres["final_params"][1]).items():
         np.testing.assert_array_equal(v, kp[key], err_msg=key)
+
+
+def _granite_moe(dtype, device):
+    """granite-moe-1b-a400m's MoE layer at full width (E=32, k=8, d_model
+    1024, d_expert 512), seeded parameters on ``device``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_tree
+    cfg = ARCHS["granite-moe-1b-a400m"].cfg.replace(dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    p = init_tree(moe.moe_specs(cfg), gen, getattr(torch, dtype), "cpu")
+    return cfg, {k: v.to(device) for k, v in p.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(1, 511), (4, 1)], ids=["prefill",
+                                                          "decode_b4"])
+def test_moe_on_card_matches_cpu_and_repeats_bit_for_bit(cuda, B, S):
+    """The MoE layer on the card at granite's width, at a prefill's and a
+    4-slot decode step's T: float32 expert choices, dispatch table and
+    kept mask equal the CPU's and the output agrees within 1e-5 of its
+    scale; in bf16 two calls give the same bits (the combine adds in a
+    fixed order, no atomics)."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(B * 1000 + S)
+    x = torch.from_numpy(rng.standard_normal((B, S, 1024),
+                                             dtype=np.float32))
+    cfg, p = _granite_moe("float32", cuda)
+    _, pc = _granite_moe("float32", "cpu")
+    m = cfg.moe
+    got = {}
+    for dev, params in ((cuda, p), ("cpu", pc)):
+        xd = x.to(dev)
+        with torch.no_grad():
+            w, gidx, _ = moe.route(params, xd.reshape(B * S, -1), cfg)
+            C = moe.capacity(B * S, m.top_k, m.n_experts, m.capacity_factor)
+            _, disp = moe.dispatch(xd.reshape(B * S, -1), gidx, w, C,
+                                   m.n_experts)
+            out, _ = moe.moe_apply(params, xd, cfg=cfg)
+        got[str(dev)] = (gidx.cpu(), disp.table.cpu(), disp.keep.cpu(),
+                         out.cpu())
+    (g1, t1, k1, o1), (g2, t2, k2, o2) = got["cuda"], got["cpu"]
+    assert torch.equal(g1, g2) and torch.equal(t1, t2)
+    assert torch.equal(k1, k2)
+    scale = max(1.0, float(o2.abs().max()))
+    assert float((o1 - o2).abs().max()) <= 1e-5 * scale
+    cfg16, p16 = _granite_moe("bfloat16", cuda)
+    xb = x.to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        a, _ = moe.moe_apply(p16, xb, cfg=cfg16)
+        b, _ = moe.moe_apply(p16, xb, cfg=cfg16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.float()).all()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))

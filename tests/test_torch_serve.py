@@ -23,7 +23,9 @@ import jax                                                   # noqa: E402
 import numpy as np                                           # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 import _chaos as chaos                                       # noqa: E402
+import chip_smoke                                            # noqa: E402
 
 from repro.configs import ARCHS as JARCHS                    # noqa: E402
 from repro.configs import reduce_cfg as jreduce              # noqa: E402
@@ -41,6 +43,7 @@ from repro_torch.serve import (LoadSpec, ServeEngine,        # noqa: E402
 pytestmark = pytest.mark.timeout(600)
 
 ARCH = "gemma3-1b"
+GRANITE = "granite-moe-1b-a400m"
 MAX_LEN = 48
 
 
@@ -53,6 +56,17 @@ def cfgs():
 def jax_params(cfgs):
     eng = JServeEngine(cfgs[1], slots=1, max_len=MAX_LEN)
     return jax.tree.map(np.asarray, eng.params)
+
+
+@pytest.fixture(scope="module")
+def granite():
+    """Reduced granite-moe-1b-a400m (E=8, k=2, capacity 8: no assignment
+    is dropped, so no token depends on the batch): (port cfg, reference
+    cfg) and the reference engine's weights."""
+    jcfg = jreduce(JARCHS[GRANITE].cfg)
+    eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
+    return ((reduce_cfg(ARCHS[GRANITE].cfg), jcfg),
+            jax.tree.map(np.asarray, eng.params))
 
 
 def _serve(e, prompt, n):
@@ -91,11 +105,12 @@ def test_engine_dead_slot_pos_pinned(cfgs):
     assert int(eng.pos[1, 0]) == 0              # dead slot pinned
 
 
-def _serve_matches_reference(cfgs, jax_params, transport, procs):
+def _serve_matches_reference(cfgs, jax_params, transport, procs,
+                             arch=ARCH):
     cfg, jcfg = cfgs
     load = LoadSpec(rps=50.0, requests=7, prompt_lens=(4, 8, 12),
                     max_new_lo=3, max_new_hi=8, seed=2)
-    out = run_serve(arch=ARCH, clients=2, slots=2, max_len=MAX_LEN,
+    out = run_serve(arch=arch, clients=2, slots=2, max_len=MAX_LEN,
                     load=load, transport=transport, procs=procs,
                     device="cpu", params=jax_params)
     res = out["result"]
@@ -128,6 +143,57 @@ def test_run_serve_over_sockets_matches_reference_sequential(cfgs,
     (0,) and (1, 2)): the same tokens, and the server's process counts
     every prefill's attention layers as plain calls and no launch."""
     _serve_matches_reference(cfgs, jax_params, "socket", 2)
+
+
+def test_run_serve_granite_matches_reference_sequential(granite):
+    """Reduced granite-moe-1b-a400m served in-proc (MoE layers, flash
+    route in every prefill) answers every request with the reference's
+    sequential tokens."""
+    cfgs, params = granite
+    _serve_matches_reference(cfgs, params, "inproc", None, arch=GRANITE)
+
+
+def test_recorded_calls_rebuild_tokens_and_replay(granite):
+    """``chip_smoke.record_engine_calls`` records an in-proc server's
+    engine calls in order: they rebuild every request's tokens, and
+    replayed (``chip_smoke.replay_engine_calls``) through a fresh engine
+    with the same weights every served token is the replay's greedy
+    token; with a fault planted in the replay's MoE router
+    (``chip_smoke.moe_fault``), some are not."""
+    (cfg, _), params = granite
+    load = LoadSpec(rps=50.0, requests=7, prompt_lens=(4, 8, 12),
+                    max_new_lo=1, max_new_hi=8, seed=3)
+    with chip_smoke.record_engine_calls() as calls:
+        res = run_serve(arch=GRANITE, clients=2, slots=2, max_len=MAX_LEN,
+                        load=load, device="cpu", params=params)["result"]
+    kinds = [c[0] for c in calls]
+    assert kinds.count("prefill") == kinds.count("attach") == 7
+    assert kinds.count("step") == res["steps"]
+    # rebuild each request's tokens: an attach opens its slot's request,
+    # a step appends to each live slot's
+    open_, rebuilt = {}, []
+    for call in calls:
+        if call[0] == "attach":
+            if call[1] in open_:
+                rebuilt.append(open_.pop(call[1]))
+            open_[call[1]] = [call[3]]
+        elif call[0] == "step":
+            for s in call[1]:
+                open_[s].append(call[2][s])
+    rebuilt += open_.values()
+    assert sorted(rebuilt) == sorted(r["tokens"] for r in res["records"])
+
+    def replay():
+        eng = ServeEngine(cfg, slots=2, max_len=MAX_LEN, device="cpu",
+                          params=params)
+        return [r for _, rows in chip_smoke.replay_engine_calls(eng, calls)
+                for r in rows]
+
+    rows = replay()
+    assert len(rows) == 7 + sum(len(c[1]) for c in calls if c[0] == "step")
+    assert all(r["served"] == r["replayed"] for r in rows)
+    with chip_smoke.moe_fault("unnormalised_weights"):
+        assert any(r["served"] != r["replayed"] for r in replay())
 
 
 def test_served_payloads_are_host_objects(monkeypatch):
