@@ -18,21 +18,25 @@ every forward):
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
 2. build: every CUDA kernel from the sources in the checkout, all ``nvcc``
-   at once, with each kernel's registers and spills and both SSD kernels'
-   shared memory; the tensor-core SSD kernel and the RG-LRU kernels must
-   not spill;
-3. the flash kernel against its plain PyTorch version on the card, on the
-   reference's test cases, ragged tails and the serving paths' shapes
+   at once, with each kernel's registers and spills and the tensor-core
+   kernels' shared memory; the tensor-core SSD and flash kernels and the
+   RG-LRU kernels must not spill;
+3. the flash kernels against their plain PyTorch version on the card, on
+   the reference's test cases, ragged tails and the serving paths' shapes
    (gemma3-1b's, recurrentgemma-9b's, the training forward's and
-   granite-moe-1b-a400m's), with CUDA-event times of the
-   kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick only);
+   granite-moe-1b-a400m's), each row with the variant it launched (the
+   bf16 tensor-core kernel for bf16, the SIMT kernel for float32), with
+   CUDA-event and device times of the kernel, of the SIMT kernel on the
+   same inputs (held to the same gate), the plain version and one PyTorch
+   library call computing the same function (a yardstick only);
 4. gemma3-1b with seeded random weights: prefill through the kernel
    against prefill through plain attention, float32 (gated) and bfloat16
    (reported);
 5. gemma3-1b's main path: event-driven serving in bf16 through
    ``run_serve`` on the port's EDAT runtime, with every kernel's launch
-   count set to 0 just before it and read just after;
+   count set to 0 just before it and read just after, every flash launch
+   the tensor-core variant (every float32 flash launch of any phase must
+   be the SIMT one);
 6. float32 serving of gemma3-1b against the sequential baseline, token for
    token;
 7. where gemma3-1b's serving time goes: one bf16 prefill and one 4-slot
@@ -164,6 +168,11 @@ PATH_S = (100, 256, 384, 511)
 PATH_WINDOWS = (512, None)
 TIMED = (511, 512)        # the shape whose times stand in the kernels line
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the device function of each flash kernel variant, as the profiler names
+# it (neither name holds the other), and the variant each dtype takes on
+# every path (the paths' tensors are 16-byte aligned)
+FA_ENTRY = {"mma_bf16": "fa_mma_bf16_kernel", "simt": "fa_fwd_kernel"}
+FA_PATH_VARIANT = {"bfloat16": "mma_bf16", "float32": "simt"}
 
 SSD_SOURCE = "src/repro_torch/csrc/ssd_fwd.cu"
 SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:68"
@@ -401,6 +410,7 @@ def _ptxas_summary(text):
 
 def phase_build(out):
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     secs = _build.build_all()
     for name, text in _build.build_log.items():
@@ -413,9 +423,14 @@ def phase_build(out):
         "kernels": ptxas.get("ssd_fwd"),
         "dynamic_smem_bytes_at_N128_P64_chunk128": smem}))
     log("rglru_fwd ptxas " + json.dumps({"kernels": ptxas.get("rglru_fwd")}))
+    fa_smem = {D: fa_ops.mma_smem_bytes(D) for D in fa_ops.HEAD_DIMS}
+    log("flash_attention_fwd ptxas " + json.dumps({
+        "kernels": ptxas.get("flash_attention_fwd"),
+        "mma_bf16_dynamic_smem_bytes_by_D": fa_smem}))
     out["build_s"] = secs
     out["ptxas"] = ptxas
     out["ssd_smem_bytes"] = smem
+    out["fa_mma_smem_bytes"] = fa_smem
     mma = [r for r in ptxas.get("ssd_fwd") or []
            if SSD_ENTRY["mma_bf16"] in r["entry"]]
     if ptxas.get("ssd_fwd") is not None and (
@@ -427,6 +442,14 @@ def phase_build(out):
                                          for r in rg)):
         raise AssertionError(f"an RG-LRU kernel is missing from the build "
                              f"log or spills: {rg}")
+    # one tensor-core flash kernel a head dim, none spilling
+    fa = [r for r in ptxas.get("flash_attention_fwd") or []
+          if FA_ENTRY["mma_bf16"] in r["entry"]]
+    if ptxas.get("flash_attention_fwd") is not None and (
+            len(fa) != len(fa_ops.HEAD_DIMS)
+            or any(r["spill_store_bytes"] for r in fa)):
+        raise AssertionError(f"a tensor-core flash kernel is missing from "
+                             f"the build log or spills: {fa}")
 
 
 def _fa_inputs(S, H, KH, D, dtype, B, seed, model_layout):
@@ -480,23 +503,40 @@ def phase_kernels(out):
                                                                 False))
         kw = dict(scale=c["D"] ** -0.5, causal=True, window=c["window"],
                   softcap=c["softcap"])
+        before = dict(ops.launches_by_variant)
         got = ops.flash_attention_fwd(q, k, v, **kw)
         want = ref.attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
+        ran = [v2 for v2, n2 in ops.launches_by_variant.items()
+               if n2 != before[v2]]
         tol = TOL[c["dtype"]]
-        ok = bool((err <= tol + tol * want.float().abs()).all())
+
+        def within(t):
+            err = (t.float() - want.float()).abs()
+            return (float(err.max()),
+                    bool((err <= tol + tol * want.float().abs()).all()))
+
+        err, ok = within(got)
         row = {k2: c[k2] for k2 in ("B", "S", "H", "KH", "D", "window",
                                     "softcap", "dtype")}
-        row.update(max_abs_err=float(err.max()), tol=tol, ok=ok,
+        # every case here is aligned: bf16 takes the tensor cores
+        row.update(variant=ran[0] if len(ran) == 1 else ran,
+                   max_abs_err=err, tol=tol,
+                   ok=ok and ran == [FA_PATH_VARIANT[c["dtype"]]],
                    path=c.get("path", False))   # False, or the path's arch
         if row["path"]:
-            row["ms"] = cuda_ms(lambda: ops.flash_attention_fwd(q, k, v,
-                                                                **kw))
-            (row["device_ms"],
-             row["device_launches_recorded"]) = kernel_device_ms(
-                lambda: ops.flash_attention_fwd(q, k, v, **kw), "fwd_kernel",
-                event_ms=row["ms"])
+            # the SIMT kernel on the same inputs, held to the same gate
+            simt = ops._launch("simt", q, k, v, out=None, **kw)
+            row["simt_max_abs_err"], simt_ok = within(simt)
+            row["ok"] = row["ok"] and simt_ok
+            for key, v2 in (("", FA_PATH_VARIANT[c["dtype"]]),
+                            ("simt_", "simt")):
+                row[key + "ms"] = cuda_ms(lambda: ops._launch(
+                    v2, q, k, v, out=None, **kw))
+                (row[key + "device_ms"],
+                 row[key + "device_launches_recorded"]) = kernel_device_ms(
+                    lambda: ops._launch(v2, q, k, v, out=None, **kw),
+                    FA_ENTRY[v2], event_ms=row[key + "ms"])
             row["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v,
                                                                 **kw))
             row["library_ms"] = cuda_ms(_sdpa(q, k, v, scale=kw["scale"],
@@ -540,6 +580,25 @@ def _since(before):
     plain = {k: now[k][1] - before[k][1] for k in now}
     return ({k: n for k, n in launched.items() if n},
             {k: n for k, n in plain.items() if n})
+
+
+def _fa_variants():
+    """The flash kernel's launches in this process by variant, now."""
+    from repro_torch.kernels import variant_counts
+    return variant_counts()["flash_attention_fwd"]
+
+
+def _fa_variants_since(before):
+    now = _fa_variants()
+    return {v: now[v] - before[v] for v in now}
+
+
+def _check_float32_simt(by_variant, what):
+    """Every float32 flash launch of ``what`` took the SIMT kernel."""
+    log(f"{what} flash_launches_by_variant " + json.dumps(by_variant))
+    if by_variant["mma_bf16"]:
+        raise AssertionError(f"{what}: float32 launched the tensor-core "
+                             f"flash kernel: {by_variant}")
 
 
 def _free():
@@ -634,10 +693,11 @@ def phase_model(out, arch):
         for S in PREFILL_S[-1:] if port_init_f32 else PREFILL_S:
             toks = torch.randint(0, kmodel.cfg.vocab, (1, S), generator=g,
                                  device="cuda")
-            before = _counts()
+            before, fa_before = _counts(), _fa_variants()
             with moe_drops() as drops, _moe_choices() as choices:
                 lk = _prefill(kmodel, toks)
             launched, plain = _since(before)
+            fa_by_variant = _fa_variants_since(fa_before)
             with _routed_as(choices) as flips:
                 lr = _prefill(rmodel, toks)
             diff = float((lk - lr).abs().max())
@@ -668,6 +728,7 @@ def phase_model(out, arch):
                    "plain_floor": floor, "gate": gate,
                    "planted_faults": faults,
                    "kernel_launches": launched, "plain_calls": plain,
+                   "flash_launches_by_variant": fa_by_variant,
                    "prefill_ms_kernel_path": t_k,
                    "prefill_ms_plain_path": t_r}
             if arch == GRANITE:
@@ -686,6 +747,11 @@ def phase_model(out, arch):
                 raise AssertionError(f"prefill launched {launched} and "
                                      f"called plain versions {plain}, not "
                                      f"{expected} launches and none")
+            # bf16 flash takes the tensor cores, float32 the SIMT kernel
+            if fa_by_variant[FA_PATH_VARIANT[dtype]] != launched.get(
+                    "flash_attention_fwd", 0):
+                raise AssertionError(f"{dtype} prefill launched flash "
+                                     f"variants {fa_by_variant}")
             if logit_gate and (diff > gate or not same):
                 raise AssertionError(f"float32 kernel path disagrees: {row}")
             missed = [f for f, r in faults.items() if r["gated"]
@@ -1071,6 +1137,7 @@ def phase_serve(out, arch):
     launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
     plain = {k: ops.plain_calls for k, ops in all_ops.items()}
     ssd_by_variant = dict(all_ops["ssd_fwd"].launches_by_variant)
+    fa_by_variant = dict(all_ops["flash_attention_fwd"].launches_by_variant)
     r, summary = res["result"], res["summary"]
     log("serve " + json.dumps({
         "arch": arch, "card": out.get("card"), "dtype": cfg.dtype,
@@ -1078,6 +1145,7 @@ def phase_serve(out, arch):
         "steps": r["steps"], "tick_execs": r["tick_execs"],
         "prefills": r["prefills"], "kernel_launches": launches,
         "ssd_launches_by_variant": ssd_by_variant,
+        "flash_launches_by_variant": fa_by_variant,
         "plain_calls": plain, **_request_lags(r["records"])}))
     checks = {
         "served == 8": r["served"] == load.requests,
@@ -1092,6 +1160,9 @@ def phase_serve(out, arch):
         # the serving path's bf16 views take the tensor-core SSD kernel
         "every ssd_fwd launch mma_bf16":
             ssd_by_variant["mma_bf16"] == launches["ssd_fwd"],
+        # ... and the tensor-core flash kernel
+        "every flash_attention_fwd launch mma_bf16":
+            fa_by_variant["mma_bf16"] == launches["flash_attention_fwd"],
         "tokens in vocab": all(0 <= t < cfg.vocab for rec in r["records"]
                                for t in rec["tokens"]),
     }
@@ -1101,9 +1172,12 @@ def phase_serve(out, arch):
     out[f"serve_{arch}"] = {"summary": summary, "steps": r["steps"],
                             "kernel_launches": launches,
                             "ssd_launches_by_variant": ssd_by_variant,
+                            "flash_launches_by_variant": fa_by_variant,
                             "plain_calls": plain}
     if "ssd_fwd" in expected:
         out["ssd_main_path_by_variant"] = ssd_by_variant
+    if "flash_attention_fwd" in expected:
+        out.setdefault("flash_main_path_by_variant", {})[arch] = fa_by_variant
     out.setdefault("main_path_launches", {})[arch] = {
         name: launches[name] for name in expected}
 
@@ -1153,6 +1227,7 @@ def phase_parity(out, arch):
     cfg = ARCHS[arch].cfg.replace(dtype="float32")
     params = _rescaled_numpy(arch, _layer_fan_in) if arch == RGEMMA \
         else None
+    fa_before = _fa_variants()
     res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                     max_len=MAX_LEN, load=load, device="cuda",
                     dtype="float32", params=params)
@@ -1163,6 +1238,7 @@ def phase_parity(out, arch):
                          device="cuda", params=params)
     want = {r["id"]: r["tokens"] for r in seq}
     _free()
+    _check_float32_simt(_fa_variants_since(fa_before), f"parity {arch}")
     prompts = {r["id"]: r["prompt"] for r in reqs}
     if set(got) != set(want):
         raise AssertionError("served and sequential request ids differ")
@@ -1495,6 +1571,7 @@ def phase_replay(out):
     load = _load()
     cfg = ARCHS[GRANITE].cfg.replace(dtype="float32")
     params = _rescaled_numpy(GRANITE, _contraction_fan_in)
+    fa_before = _fa_variants()
     with record_engine_calls() as calls:
         res = run_serve(arch=GRANITE, reduced=False, clients=2, slots=4,
                         max_len=MAX_LEN, load=load, device="cuda",
@@ -1509,6 +1586,7 @@ def phase_replay(out):
                          max_len=MAX_LEN, realtime=False, device="cuda",
                          params=params)
     _free()
+    _check_float32_simt(_fa_variants_since(fa_before), "replay granite")
     seq_diff = []
     for rec in seq:
         a, b = served[rec["id"]], rec["tokens"]
@@ -1874,6 +1952,7 @@ def phase_serve_socket(out):
     session_s = time.monotonic() - t0
     r, summary, wire = res["result"], res["summary"], res["stats"]["transport"]
     launches, plain = r["kernel_launches"], r["plain_calls"]
+    fa_by_variant = r["launches_by_variant"]["flash_attention_fwd"]
     recs = r["records"]
     # the clients' release (READY) from their schedules: t_sched is the
     # client's start plus the request's offset
@@ -1889,7 +1968,8 @@ def phase_serve_socket(out):
         "reading": "smoke, 8 requests", "transport": "socket",
         "procs": 3, **summary, "steps": r["steps"],
         "tick_execs": r["tick_execs"], "prefills": r["prefills"],
-        "kernel_launches": launches, "plain_calls": plain, **split,
+        "kernel_launches": launches, "plain_calls": plain,
+        "flash_launches_by_variant": fa_by_variant, **split,
         **_request_lags(recs),
         "wire": {k: wire.get(k) for k in ("wire_events_sent", "writes",
                                           "wire_bytes", "loopback_events",
@@ -1906,6 +1986,8 @@ def phase_serve_socket(out):
         "no other kernel launched": not any(
             n for k, n in launches.items() if k not in expected),
         "plain_calls == 0": not any(plain.values()),
+        "every flash_attention_fwd launch mma_bf16":
+            fa_by_variant["mma_bf16"] == launches["flash_attention_fwd"],
         "the parent launched nothing": _counts() == parent0,
         "tokens in vocab": all(0 <= t < cfg.vocab for rec in recs
                                for t in rec["tokens"]),
@@ -1914,8 +1996,11 @@ def phase_serve_socket(out):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"socket serve checks failed: {failed}")
+    out.setdefault("flash_main_path_by_variant", {})[
+        f"{GEMMA} socket"] = fa_by_variant
     out["serve_socket"] = {"summary": summary, "steps": r["steps"],
                            "kernel_launches": launches,
+                           "flash_launches_by_variant": fa_by_variant,
                            "plain_calls": plain, "split": split,
                            "wire": wire}
     out.setdefault("main_path_launches", {})[f"{GEMMA} socket"] = {
@@ -1927,6 +2012,8 @@ def phase_serve_socket(out):
                      max_len=MAX_LEN, load=load, transport="socket",
                      procs=3, device="cuda", dtype="float32")
     got = {rec["id"]: rec["tokens"] for rec in sock["result"]["records"]}
+    _check_float32_simt(sock["result"]["launches_by_variant"][
+        "flash_attention_fwd"], "serve_socket float32 server")
     want = out.get(f"parity_{GEMMA}", {}).get("served_tokens")
     if want is None:                     # phase 6 did not run: serve here
         inproc = run_serve(arch=GEMMA, reduced=False, clients=2, slots=4,
@@ -2182,6 +2269,7 @@ def phase_train(out):
     launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
     plain = {k: ops.plain_calls for k, ops in all_ops.items()}
     recomputes = fa.backward_recomputes
+    fa_by_variant = dict(fa.launches_by_variant)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = _losses(res)
     row = {"arch": GEMMA, "card": out.get("card"), "dtype": cfg.dtype,
@@ -2190,6 +2278,7 @@ def phase_train(out):
            "metric_arrivals_s": res["metric_arrivals_s"],
            "losses": {f"{r}/{s}": v for (r, s), v in losses.items()},
            "kernel_launches": launches, "plain_calls": plain,
+           "flash_launches_by_variant": fa_by_variant,
            "backward_recomputes": recomputes,
            "timeouts": res["timeouts"],
            "max_memory_allocated_gib": peak_gib}
@@ -2200,6 +2289,8 @@ def phase_train(out):
         "replicas equal": _replicas_equal(res),
         f"flash_attention_fwd launches == {expected}":
             launches["flash_attention_fwd"] == expected,
+        "every flash_attention_fwd launch mma_bf16":
+            fa_by_variant["mma_bf16"] == expected,
         "no other kernel launched": not any(
             n for k, n in launches.items() if k != "flash_attention_fwd"),
         "plain_calls == 0": not any(plain.values()),
@@ -2221,8 +2312,11 @@ def phase_train(out):
     out[f"train_{GEMMA}"] = row
     out.setdefault("main_path_launches", {})[f"{GEMMA}-train"] = {
         "flash_attention_fwd": launches["flash_attention_fwd"]}
+    out.setdefault("flash_main_path_by_variant", {})[
+        f"{GEMMA}-train"] = fa_by_variant
 
     # float32: the kernel path against the plain path, planted faults
+    fa_before = _fa_variants()
     runs = {}
     for name, impl, fault in (("kernel", "kernel", None),
                               ("plain", "ref", None),
@@ -2242,6 +2336,7 @@ def phase_train(out):
             runs[name]["gate"] = _parity(runs["kernel"]["res"], res)
         del res["final_params"]           # free the card for the next run
         _free()
+    _check_float32_simt(_fa_variants_since(fa_before), "train float32")
     report = {n: {k: v for k, v in r.items() if k != "res"}
               for n, r in runs.items()}
     report["kernel"]["losses"] = {f"{r}/{s}": v for (r, s), v in
@@ -2364,9 +2459,24 @@ def kernels_line(out):
                       and r["S"] == TIMED[0]), None)
             entry["granite"] = g and {
                 k: g[k] for k in ("B", "S", "H", "KH", "D", "window",
-                                  "dtype", "max_abs_err", "ms",
-                                  "device_ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms")}
+                                  "dtype", "variant", "max_abs_err", "ms",
+                                  "device_ms", "simt_ms", "simt_device_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+            # the variant the timed shape launched, the main paths'
+            # launches by variant, and the SIMT kernel on the same inputs
+            by_variant = out.get("flash_main_path_by_variant", {})
+            if entry["granite"]:
+                entry["granite"]["launches_by_variant"] = by_variant.get(
+                    GRANITE)
+            entry["variant"] = timed["variant"] if timed else None
+            entry["launches_by_variant"] = {
+                v: sum(n[v] for n in by_variant.values())
+                for v in FA_ENTRY} if by_variant else None
+            entry["launches_by_variant_by_path"] = by_variant
+            entry["simt_ms"] = timed.get("simt_ms") if timed else None
+            entry["simt_device_ms"] = (timed.get("simt_device_ms")
+                                       if timed else None)
         if name == "ssd_fwd":
             entry["library"] = "no single PyTorch call computes the SSD scan"
             # the variant the timed shape launched, the main path's

@@ -2,52 +2,98 @@
 // softcapped grouped-query attention with an online softmax.
 //
 // Replaces the TPU kernel `_fa_kernel` / `flash_attention_fwd` of
-// src/repro/kernels/flash_attention/kernel.py.  It computes the same
-// function with the same cast points: logits are q.k^T in float32 times
-// `scale`, then the optional tanh softcap; the running max m, the
-// denominator l and the accumulator are float32; p is rounded to v's dtype
-// before p.v; the output is acc / max(l, 1e-30) in q's dtype.
+// src/repro/kernels/flash_attention/kernel.py (:26 / :86, `pallas_call` at
+// :106).  It computes the same function with the same cast points: logits
+// are q.k^T in float32 times `scale`, then the optional tanh softcap; the
+// running max m, the denominator l and the accumulator are float32; p is
+// added into l in float32, then rounded to v's dtype before p.v; the
+// output is acc / max(l, 1e-30) in q's dtype.
 //
-// Design for this card.  The TPU walks the kv blocks as a sequential grid
-// axis that carries (acc, m, l) in VMEM scratch; here blocks run in
-// parallel in no order, so one thread block owns one (batch, head, 64-row
-// q tile) and loops over the 64-row K/V tiles itself, keeping m and l in
-// registers and the accumulator in registers (D/4 floats per thread).
+// Two variants compute it.  The host picks one from the inputs alone
+// (repro_torch/kernels/flash_attention/ops.py, `variant`):
+// `fa_mma_bf16_kernel<D>` (bf16 tensor cores) for bf16 q, k, v, o with D in
+// {32, 64, 128, 256} and 16-byte aligned pointers and row strides, which is
+// every served and trained path; `fa_fwd_kernel<T, D>` (SIMT) for
+// everything else, every float32 call included.  Both share the grid: one
+// thread block owns one (batch, head, 64-row q tile) and loops over the
+// 64-row K/V tiles itself, keeping m, l and the accumulator in registers.
+// The TPU walks the kv blocks as a sequential grid axis that carries
+// (acc, m, l) in VMEM scratch; here blocks run in parallel in no order.
 // Query head h reads KV head h / (H / KH): no broadcast copy of K/V.  Tiles
 // whose every (q, k) pair is masked by causality or the window are never
-// loaded.  Unlike the TPU kernel it masks ragged tails, so any S >= 1
-// works, for D in {32, 64, 128, 256}.  Tiles are staged in shared memory as
-// float32 with one float of row padding (no bank conflicts on the strided
-// reads); at D = 256 that is 214,016 bytes of dynamic shared memory, above
-// the 48 KB static limit, so every launch raises the function's limit first.
+// loaded.  Unlike the TPU kernel both mask ragged tails, so any S >= 1
+// works.
 //
 // What bounds it.  At the serving path's shapes (B=1, H=4, KH=1, D=256,
-// S=512, causal, bf16) the function moves ~2.6 MB (0.78 us at 3.35 TB/s)
+// S=511, causal, bf16) the function moves ~2.6 MB (0.78 us at 3.35 TB/s)
 // and does ~0.54 GFLOP (0.54 us on the bf16 tensor cores), so the card's
-// bound is memory, at under a microsecond.  This kernel is far from it
-// (0.26-0.28 ms measured on an H100 by chip_smoke.py): the path's shapes
-// give only B*H*ceil(S/64) = 32 blocks for 132 SMs, the last q tile walks
-// 8 kv tiles, and per kv tile a block issues ~50k shared-memory load
-// instructions for its scalar float32 FMAs (p.v reads one float of V per
-// FMA, q.k^T half a float), ~28 us at one warp-wide load a cycle.  So,
-// estimated from the code and not read from a counter, what bounds it is
-// shared-memory load issue on a quarter of the SMs, not HBM and not
-// arithmetic.  Tensor cores (mma.sync, then wgmma with TMA), wide
-// shared-memory loads and splitting the kv loop across blocks are the
-// later steps; this version is the simple one that is right.
+// bound is memory, at under a microsecond (recurrentgemma-9b, H=16: 2.66
+// us; the training forward, B=2, S=512: 1.57 us; granite-moe-1b-a400m,
+// H=16, KH=8, D=64: 0.94 us).  Neither variant comes near it: the grid has
+// only B*H*ceil(S/64) = 32 to 128 blocks for 132 SMs, and the last q tile
+// walks 8 kv tiles in a serial chain.
+//
+// The SIMT variant (`fa_fwd_kernel`, 256 threads).  Tiles are staged in
+// shared memory as float32 with one float of row padding (no bank
+// conflicts on the strided reads); at D = 256 that is 214,016 bytes of
+// dynamic shared memory.  Its products are scalar float32 FMAs: per kv tile
+// a block issues ~50k shared-memory load instructions (p.v reads one float
+// of V per FMA, q.k^T half a float), ~28 us at one warp-wide load a cycle.
+// So, estimated from the code and not read from a counter, what bounds it
+// is shared-memory load issue in each block's serial chain: it took
+// 0.26 ms at S=511, D=256 whether H was 4 or 16 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md).
+//
+// The tensor-core variant (`fa_mma_bf16_kernel`, 4 warps).  What it does
+// about that chain:
+// * Products.  q.k^T and p.v are `mma.sync.m16n8k16` with bf16 operands and
+//   float32 accumulators.  bf16 q and k widen to float32 exactly, so q.k^T
+//   forms the reference's products; only the order of the float32 sums
+//   differs.  Each warp owns 16 query rows: its 16 x 64 logit tile stays in
+//   the accumulators, the online softmax runs on them (each lane holds 2
+//   rows, reduced across the 4 lanes of a quad with shuffles), and p, added
+//   into l in float32, is rounded to bf16 straight into the A operand of
+//   p.v, in registers.  The output accumulator is D / 2 floats a thread
+//   (128 at D = 256).
+// * Loads.  Q, K and V stay bf16 in shared memory, in rows of 16-byte
+//   chunks XOR-swizzled by the row (padded by one chunk at D = 32), so
+//   `ldmatrix` reads them without bank conflicts; V is read transposed by
+//   `ldmatrix.trans`.  K/V tiles are double-buffered: `cp.async` fetches
+//   tile kt + 1 while tile kt is computed, and rows past S are zero-filled.
+//   At D = 256 that is 5 tiles of 64 x 256 x 2 B = 163,840 B of dynamic
+//   shared memory, one block an SM.
+// * Why `mma.sync` and not `wgmma` with TMA: the call's 0.54 GFLOP take
+//   0.55 us at the bf16 peak, so what sets the time is one block's serial
+//   chain of up to 8 kv tiles and the grid's fill, not the tensor-core
+//   rate.
+// Measured (chip_smoke.py phase 3, profiler device time, NVIDIA H100 80GB
+// HBM3 at 700 W): at S = 511, D = 256, 0.035 ms at H = 4 and at H = 16
+// (SDPA 0.08-0.15 ms, the SIMT variant 0.26 ms), 0.036 ms for the training
+// forward (B = 2, S = 512); at granite's D = 64, 0.014 ms (SIMT 0.080).
+// 254 registers at D = 256, no spills.  The time grows with the chain,
+// ~3.5 us a kv tile at D = 256 after ~6 us of set-up, and not with H: the
+// blocks' serial kv walk bounds it, so splitting the kv loop across blocks
+// or warps comes before `wgmma`.
 //
 // Layout.  Each of q, k, v, o is indexed (b, h, s, d) through its own
 // element strides for b, h and s; d must be unit-stride.  So the model's
 // (B, S, H, D) tensors go in as transposed views, with no copy, and the
 // output is written straight into a (B, S, H, D) buffer.
 //
-// Plain C interface (loaded with ctypes): flash_attention_fwd returns 0, a
-// cudaError_t, or -1 for arguments it does not take.  It allocates nothing
-// and launches on the caller's stream.
+// Plain C interface (loaded with ctypes): flash_attention_fwd (SIMT) and
+// flash_attention_fwd_mma (tensor cores, bf16 only) return 0, a
+// cudaError_t, or -1 for arguments they do not take; each raises its
+// kernel's dynamic shared-memory limit before every launch (both are above
+// the 48 KB static limit at D = 256).  flash_attention_fwd_mma_smem_bytes
+// gives the shared memory the tensor-core kernel asks for.  They allocate
+// nothing and launch on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -256,6 +302,226 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// ------------------------------------------------- the tensor-core variant
+constexpr int MMA_THREADS = 128;  // 4 warps of 16 query rows
+constexpr int NKT = BK / 8;       // n8 tiles of a warp's 16 x 64 logits
+static_assert(BQ == 16 * (MMA_THREADS / 32), "a warp owns 16 query rows");
+
+// dynamic shared memory of one block: the Q tile and two K/V tiles
+int mma_smem_bytes(int D) { return 5 * BQ * tile_of(D).rsc * 16; }
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+fa_mma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
+                   Strides vs, Strides os, int H, int KH, int S, float scale,
+                   int causal, int window, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int CH = D / 8;  // 16-byte chunks of a row; n8 tiles of o
+  const Tile tt = tile_of(D);
+  const int tile_elems = BQ * tt.rsc * 8;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  // buffer j: K at Qs + (1 + 2j) tiles, V at Qs + (2 + 2j) tiles
+  __nv_bfloat16* KV = Qs + tile_elems;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, qd = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = H / KH;
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
+
+  // rows r0..r0+63 of a (S, D) matrix with row stride rs into a tile, one
+  // 16-byte cp.async a chunk; rows past S are zero-filled
+  auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
+                   long long rs, int r0) {
+    for (int c = tid; c < BQ * CH; c += MMA_THREADS) {
+      const int r = c / CH, ch = c % CH;
+      __nv_bfloat16* d = dst + toff(tt, r, 8 * ch);
+      if (r0 + r < S)
+        cp_async16(d, src + static_cast<long long>(r0 + r) * rs + 8 * ch);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  // live kv tiles: [kt_lo, kt_hi]
+  int kt_lo = 0;
+  if (window > 0) {
+    const int kmin = q0 - window + 1;  // first key row q0 may see
+    kt_lo = kmin > 0 ? kmin / BK : 0;
+  }
+  const int last_q = min(q0 + BQ - 1, S - 1);
+  const int kt_hi = (causal ? last_q : S - 1) / BK;
+
+  stage(Qs, qb, qs.s, q0);
+  stage(KV, kb, ks.s, kt_lo * BK);
+  stage(KV + tile_elems, vb, vs.s, kt_lo * BK);
+  cp_async_commit();
+
+  // ldmatrix row addresses: an A operand (or a B operand read through
+  // .trans) takes rows by lane bit 3 and columns by bit 4; a B operand
+  // read as stored takes rows by bit 4 and columns by bit 3
+  const int lr_a = (lane & 7) + ((lane >> 3) & 1) * 8, lc_a = (lane >> 4) * 8;
+  const int lr_b = (lane & 7) + (lane >> 4) * 8, lc_b = ((lane >> 3) & 1) * 8;
+  const int row0 = 16 * warp;            // the warp's rows in the q tile
+  const int qa = q0 + row0 + gr;         // this lane's rows: qa and qa + 8
+  const uint32_t q_base = smem_u32(Qs);
+
+  float acc[CH][4];  // o: rows qa, qa + 8; columns 8j + 2qd and the next
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {-1e30f, -1e30f};  // finite: a masked logit is -inf
+  float l[2] = {0.f, 0.f};        // this lane's part of the row sums
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int buf = (kt - kt_lo) & 1;
+    if (kt < kt_hi) {
+      __nv_bfloat16* nxt = KV + 2 * (buf ^ 1) * tile_elems;
+      stage(nxt, kb, ks.s, (kt + 1) * BK);
+      stage(nxt + tile_elems, vb, vs.s, (kt + 1) * BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Ks = KV + 2 * buf * tile_elems;
+    const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Ks + tile_elems);
+    const int k0 = kt * BK;
+
+    // s = q.k^T: this warp's 16 rows x 64 keys, NKT n8 tiles
+    float s[NKT][4];
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t a[4];
+      ldsm_x4(a, q_base + 2 * toff(tt, row0 + lr_a, 16 * kd + lc_a));
+#pragma unroll
+      for (int kn = 0; kn < NKT / 2; ++kn) {  // keys 16 kn .. 16 kn + 15
+        uint32_t bf[4];
+        ldsm_x4(bf, k_base + 2 * toff(tt, 16 * kn + lr_b, 16 * kd + lc_b));
+        mma16816(s[2 * kn], a, bf[0], bf[1]);
+        mma16816(s[2 * kn + 1], a, bf[2], bf[3]);
+      }
+    }
+
+    // scale, softcap and mask; element e of tile j is row qa + 8 (e >> 1),
+    // key k0 + 8 j + 2 qd + (e & 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = qa + 8 * (e >> 1);
+        const int kp = k0 + 8 * j + 2 * qd + (e & 1);
+        const bool ok = kp < S && (!causal || kp <= qp) &&
+                        (window <= 0 || qp - kp < window);
+        float x = s[j][e] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        s[j][e] = ok ? x : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+
+    // online softmax on the fragments: a row's 4 lanes are a quad
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);  // masked: exp(-inf) = 0
+        rs[e >> 1] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // o += p.v: the logit tiles 2 kk and 2 kk + 1, rounded to bf16, are the
+    // A operand of keys 16 kk .. 16 kk + 15; V is read transposed
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk) {
+      uint32_t a[4];
+      a[0] = bits(__floats2bfloat162_rn(s[2 * kk][0], s[2 * kk][1]));
+      a[1] = bits(__floats2bfloat162_rn(s[2 * kk][2], s[2 * kk][3]));
+      a[2] = bits(__floats2bfloat162_rn(s[2 * kk + 1][0], s[2 * kk + 1][1]));
+      a[3] = bits(__floats2bfloat162_rn(s[2 * kk + 1][2], s[2 * kk + 1][3]));
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {  // columns 16 dn .. 16 dn + 15
+        uint32_t bv[4];
+        ldsm_x4_t(bv, v_base + 2 * toff(tt, 16 * kk + lr_a, 16 * dn + lc_a));
+        mma16816(acc[2 * dn], a, bv[0], bv[1]);
+        mma16816(acc[2 * dn + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before its refill
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float lm = fmaxf(lt, 1e-30f);
+    const int qp = qa + 8 * r;
+    if (qp < S) {
+      __nv_bfloat16* orow = o + b * os.b + h * os.h +
+                            static_cast<long long>(qp) * os.s + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[j][2 * r] / lm,
+                                  acc[j][2 * r + 1] / lm);
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               const Strides* st, int B, int H, int KH, int S, float scale,
+               int causal, int window, float softcap, cudaStream_t stream) {
+  const int smem = mma_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_mma_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  fa_mma_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      st[0], st[1], st[2], st[3], H, KH, S, scale, causal, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
 }  // namespace
 
 // q: (B, H, S, D); k, v: (B, KH, S, D); o: (B, H, S, D); all of one dtype
@@ -282,6 +548,48 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return dispatch<__nv_bfloat16>(q, k, v, o, st, B, H, KH, S, D, scale,
                                    causal, window, softcap, s);
   return -1;
+}
+
+// The tensor-core variant: the arguments of flash_attention_fwd, bf16 only
+// (no dtype).  It takes D in {32, 64, 128, 256} and, for its 16-byte
+// cp.async row loads, 16-byte aligned pointers and (b, h, s) strides of
+// q, k, v and o; else it returns -1.
+extern "C" int flash_attention_fwd_mma(const void* q, const void* k,
+                                       const void* v, void* o,
+                                       const long long* strides, int B, int H,
+                                       int KH, int S, int D, float scale,
+                                       int causal, int window, float softcap,
+                                       void* stream) {
+  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0 || H > 65535 ||
+      B > 65535 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(o))
+    return -1;
+  Strides st[4];
+  for (int t = 0; t < 4; ++t) {
+    st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+    if (st[t].b % 8 != 0 || st[t].h % 8 != 0 || st[t].s % 8 != 0) return -1;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch_mma<32>(q, k, v, o, st, B, H, KH, S, scale, causal,
+                            window, softcap, s);
+    case 64:
+      return launch_mma<64>(q, k, v, o, st, B, H, KH, S, scale, causal,
+                            window, softcap, s);
+    case 128:
+      return launch_mma<128>(q, k, v, o, st, B, H, KH, S, scale, causal,
+                             window, softcap, s);
+    case 256:
+      return launch_mma<256>(q, k, v, o, st, B, H, KH, S, scale, causal,
+                             window, softcap, s);
+    default:
+      return -1;
+  }
+}
+
+extern "C" int flash_attention_fwd_mma_smem_bytes(int D) {
+  return mma_smem_bytes(D);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

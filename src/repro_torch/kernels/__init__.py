@@ -17,3 +17,12 @@ def launch_counts() -> Dict[str, Tuple[int, int]]:
     return {name: (ops.kernel_launches, ops.plain_calls)
             for name, ops in (("flash_attention_fwd", fa), ("ssd_fwd", ssd),
                               ("rglru_fwd", rglru))}
+
+
+def variant_counts() -> Dict[str, Dict[str, int]]:
+    """``{kernel: {variant: kernel launches}}`` of every kernel that has
+    variants, in this process, now."""
+    from .flash_attention import ops as fa
+    from .ssd import ops as ssd
+    return {name: dict(ops.launches_by_variant)
+            for name, ops in (("flash_attention_fwd", fa), ("ssd_fwd", ssd))}

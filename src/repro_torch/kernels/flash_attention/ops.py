@@ -4,11 +4,19 @@ The counterpart of ``repro.kernels.flash_attention.ops``.  The model's
 layout is (B, S, H, D); the kernel indexes (B, H, S, D) through each
 tensor's strides, so the model's tensors reach it as transposed views and
 its output is written straight into a (B, S, H, D) buffer.  On CUDA tensors
-:func:`flash_attention` launches the hand-written Hopper kernel
+:func:`flash_attention` launches a hand-written Hopper kernel
 (``csrc/flash_attention_fwd.cu``) on the current stream and counts the
-launch in :data:`kernel_launches`; on CPU tensors it runs the plain version
-(:mod:`.ref`) and counts :data:`plain_calls`.  There is no fallback between
-the two: a CUDA call the kernel does not take raises.
+launch in :data:`kernel_launches` and :data:`launches_by_variant`; on CPU
+tensors it runs the plain version (:mod:`.ref`) and counts
+:data:`plain_calls`.  There is no fallback between the two: a CUDA call the
+kernel does not take raises.
+
+Two kernels compute it, and :func:`variant` picks one from the inputs
+alone: ``"mma_bf16"`` (bf16 tensor cores) for bf16 inputs with D in
+:data:`HEAD_DIMS` and 16-byte aligned pointers and row strides, which is
+every served and trained path; ``"simt"`` (float32 FMAs) for every other
+call, float32 included.  A launch that fails raises; no other variant is
+tried.
 
 The backward pass recomputes the plain version under autograd, as the
 reference's ``_fa_bwd`` does (an XLA VJP of its plain attention, not a
@@ -32,11 +40,19 @@ from . import ref as _ref
 kernel_launches = 0
 #: calls answered by the plain version (CPU tensors)
 plain_calls = 0
+VARIANTS = ("mma_bf16", "simt")
+#: kernel launches in this process by variant
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 #: backward passes, each a recompute of the plain version under autograd
 backward_recomputes = 0
 _count_lock = threading.Lock()
 
 HEAD_DIMS = (32, 64, 128, 256)
+#: the tensor-core kernel's rule, as its C entry ``flash_attention_fwd_mma``
+#: checks it: bf16 q, k, v and out, D in HEAD_DIMS, and every pointer and
+#: (b, h, s) stride a multiple of MMA_ALIGN bytes (its 16-byte ``cp.async``
+#: row loads)
+MMA_DTYPE, MMA_ALIGN = torch.bfloat16, 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,40 +62,86 @@ def reset_counts() -> None:
         kernel_launches = 0
         plain_calls = 0
         backward_recomputes = 0
+        for v in VARIANTS:
+            launches_by_variant[v] = 0
 
 
-def _count(kernel: bool) -> None:
+def _count(kernel: Optional[str]) -> None:
+    """One kernel launch of variant ``kernel``, or (None) one plain call."""
     global kernel_launches, plain_calls
     with _count_lock:
         if kernel:
             kernel_launches += 1
+            launches_by_variant[kernel] += 1
         else:
             plain_calls += 1
+
+
+def aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's pointer and its strides along the first three
+    axes ((b, h, s) of the kernel's layout) are multiples of
+    :data:`MMA_ALIGN` bytes."""
+    return all(t.data_ptr() % MMA_ALIGN == 0
+               and all(t.stride(i) * t.element_size() % MMA_ALIGN == 0
+                       for i in range(3))
+               for t in tensors)
+
+
+def variant(dtype: torch.dtype, D: int, aligned: bool) -> str:
+    """The kernel a call launches, from its inputs alone: ``"mma_bf16"``
+    for :data:`MMA_DTYPE` with D in :data:`HEAD_DIMS` and ``aligned``
+    pointers and row strides (see :func:`aligned`), else ``"simt"``."""
+    if dtype == MMA_DTYPE and D in HEAD_DIMS and aligned:
+        return "mma_bf16"
+    return "simt"
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_fwd")
     if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-               ctypes.c_int, ctypes.c_void_p])
-        lib.flash_attention_fwd.restype = ctypes.c_int
+        # q, k, v, o, strides, B, H, KH, S, D, scale, causal, window,
+        # softcap; then the SIMT entry's dtype, and the stream
+        args = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float])
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_fwd_mma.argtypes = args + [ctypes.c_void_p]
+        lib.flash_attention_fwd_mma.restype = ctypes.c_int
+        lib.flash_attention_fwd_mma_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_fwd_mma_smem_bytes.restype = ctypes.c_int
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_fwd.argtypes = args + [ctypes.c_int,
+                                                   ctypes.c_void_p]
     return lib
+
+
+def mma_smem_bytes(D: int) -> int:
+    """Dynamic shared memory (bytes) a launch of the tensor-core kernel at
+    head dim D asks for."""
+    return _lib().flash_attention_fwd_mma_smem_bytes(D)
 
 
 def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel.  q: (B, H, S, D); k/v: (B, KH, S, D), CUDA
-    tensors of one dtype (float32 or bfloat16), any strides with a
-    unit-stride last axis.  Writes ``out`` (a new contiguous tensor if None,
-    else q's shape, dtype and device with a unit-stride last axis) and
-    returns it."""
+    """Launch the kernel :func:`variant` picks.  q: (B, H, S, D); k/v:
+    (B, KH, S, D), CUDA tensors of one dtype (float32 or bfloat16), any
+    strides with a unit-stride last axis.  Writes ``out`` (a new contiguous
+    tensor if None, else q's shape, dtype and device with a unit-stride
+    last axis) and returns it."""
+    return _launch(None, q, k, v, scale=scale, causal=causal, window=window,
+                   softcap=softcap, out=out)
+
+
+def _launch(kind: Optional[str], q, k, v, *, scale: float, causal: bool,
+            window: Optional[int], softcap: Optional[float],
+            out: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`flash_attention_fwd` with the variant ``kind`` named (None:
+    the one :func:`variant` picks), so that the SIMT kernel can be timed on
+    inputs the tensor-core kernel takes; the model path never names one."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_fwd: q, k, v must be on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
@@ -107,21 +169,30 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
     if any(t.stride(3) != 1 for t in (q, k, v, out)):
         raise ValueError("flash_attention_fwd: the head-dim axis of q, k, v "
                          "and out must have stride 1")
+    chosen = variant(q.dtype, D, aligned(q, k, v, out))
+    if kind is None:
+        kind = chosen
+    elif kind not in VARIANTS or (kind == "mma_bf16" and chosen != kind):
+        raise ValueError(f"flash_attention_fwd: kernel {kind!r} does not "
+                         f"take these inputs (they take {chosen!r})")
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            B, H, KH, S, D, float(scale), int(bool(causal)),
-            int(window) if window is not None else 0,
-            float(softcap) if softcap is not None else 0.0,
-            _DTYPES[q.dtype], stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                strides, B, H, KH, S, D, float(scale), int(bool(causal)),
+                int(window) if window is not None else 0,
+                float(softcap) if softcap is not None else 0.0)
+        if kind == "mma_bf16":
+            rc = lib.flash_attention_fwd_mma(*args, stream)
+        else:
+            rc = lib.flash_attention_fwd(*args, _DTYPES[q.dtype], stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention_fwd launch failed ({rc}): {msg}")
-    _count(kernel=True)
+        raise RuntimeError(f"flash_attention_fwd ({kind}) launch failed "
+                           f"({rc}): {msg}")
+    _count(kind)
     return out
 
 
@@ -137,7 +208,7 @@ def _forward(q, k, v, scale, causal, window, softcap):
     if q.device.type == "cpu":
         out = _ref.attention_ref(qt, kt, vt, scale=scale, causal=causal,
                                  window=window, softcap=softcap)
-        _count(kernel=False)
+        _count(None)
         return out.transpose(1, 2)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 

@@ -51,7 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import edat
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, variant_counts
 
 from .engine import DEFAULT_MAX_LEN, ServeEngine, resolve_device, serving_cfg
 from .loadgen import LoadSpec, client_schedule, summarize
@@ -114,6 +114,7 @@ class ServeProgram:
         self.t_start: Optional[float] = None
         #: the kernels' counts in this process once warm-up is done
         self._counts0: Optional[Dict[str, Tuple[int, int]]] = None
+        self._variants0: Optional[Dict[str, Dict[str, int]]] = None
 
     # -- engine (built lazily: client ranks never pay for the model
     # build) ------------------------------------------------------------------
@@ -139,6 +140,7 @@ class ServeProgram:
         # clients: measured latency is serving, not set-up
         self.engine.warmup(self.load.prompt_lens)
         self._counts0 = launch_counts()
+        self._variants0 = variant_counts()
         self.t_start = time.monotonic()
         ctx.submit_persistent(self._on_request, deps=[(edat.ANY, REQUEST)],
                               name="serve.request")
@@ -323,15 +325,19 @@ class ServeProgram:
     def result(self) -> Dict[str, Any]:
         """The round's records and counters.  ``kernel_launches`` and
         ``plain_calls`` (``{kernel: n}``, None before the server started)
-        count each kernel's wrapper calls in this process since warm-up:
-        read in the server's own process, where over sockets the model
-        runs."""
+        count each kernel's wrapper calls in this process since warm-up,
+        and ``launches_by_variant`` (``{kernel: {variant: n}}``) the
+        launches of each kernel that has variants: read in the server's
+        own process, where over sockets the model runs."""
         eng = self._engine
-        launched = plain = None
+        launched = plain = by_variant = None
         if self._counts0 is not None:
             now = launch_counts()
             launched = {k: now[k][0] - self._counts0[k][0] for k in now}
             plain = {k: now[k][1] - self._counts0[k][1] for k in now}
+            vnow = variant_counts()
+            by_variant = {k: {v: n - self._variants0[k][v]
+                              for v, n in vnow[k].items()} for k in vnow}
         return {
             "records": sorted(self.records, key=lambda r: r["id"]),
             "served": self.served,
@@ -345,6 +351,7 @@ class ServeProgram:
             "slots": self.slots,
             "kernel_launches": launched,
             "plain_calls": plain,
+            "launches_by_variant": by_variant,
         }
 
 

@@ -140,3 +140,132 @@ def test_launch_counter_loses_no_update_under_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert tfa.plain_calls == before + n_threads * n_calls
+
+
+# ------------------------------------------------- the kernel's two variants
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    (torch.bfloat16, D, True, "mma_bf16") for D in tfa.HEAD_DIMS] + [
+    (torch.float32, 256, True, "simt"),
+    (torch.float32, 64, True, "simt"),
+    (torch.bfloat16, 256, False, "simt"),
+    (torch.bfloat16, 64, False, "simt"),
+    (torch.bfloat16, 48, True, "simt"),
+])
+def test_variant_rule(dtype, D, aligned, want):
+    assert tfa.variant(dtype, D, aligned) == want
+
+
+def test_aligned_reads_model_layout_views():
+    """The model hands (B, S, H, D) tensors over as transposed views: their
+    (b, h, s) strides are read, whatever the memory order."""
+    for D in tfa.HEAD_DIMS:
+        x = torch.zeros(2, 17, 4, D, dtype=torch.bfloat16)
+        view = x.transpose(1, 2)                 # (B, H, S, D), strided
+        assert not view.is_contiguous() and tfa.aligned(view)
+        assert tfa.variant(view.dtype, D, tfa.aligned(view)) == "mma_bf16"
+        # a head slice of a wider projection keeps 16-byte rows
+        wide = torch.zeros(2, 17, 12, D, dtype=torch.bfloat16)
+        assert tfa.aligned(wide[:, :, 4:8].transpose(1, 2))
+    # rows of 68 bf16 values (136 bytes) are not 16-byte aligned
+    padded = torch.zeros(1, 9, 2, 68, dtype=torch.bfloat16)[..., :64]
+    assert not tfa.aligned(padded.transpose(1, 2))
+    assert tfa.variant(torch.bfloat16, 64,
+                       tfa.aligned(padded.transpose(1, 2))) == "simt"
+    # a pointer 2 bytes past a 16-byte boundary
+    buf = torch.zeros(2 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(2, 8, 2, 64).transpose(1, 2)
+    assert not tfa.aligned(shifted)
+    # float32 rows of 36 values (144 bytes) are aligned; the rule's dtype
+    # still sends them to the SIMT kernel
+    f32 = torch.zeros(1, 5, 2, 36).transpose(1, 2)
+    assert tfa.aligned(f32) and tfa.variant(f32.dtype, 36, True) == "simt"
+
+
+def test_no_public_variant_keyword():
+    """The variant follows from the inputs alone: neither public entry
+    takes a keyword that names one."""
+    import inspect
+    for fn in (tfa.flash_attention_fwd, tfa.flash_attention):
+        params = set(inspect.signature(fn).parameters)
+        assert params == {"q", "k", "v", "scale", "causal", "window",
+                          "softcap"} | ({"out"} if fn is
+                                        tfa.flash_attention_fwd else set())
+
+
+def test_reset_counts_clears_launches_by_variant():
+    tfa._count("mma_bf16")
+    tfa._count("simt")
+    assert tfa.launches_by_variant["mma_bf16"] >= 1
+    tfa.reset_counts()
+    assert tfa.launches_by_variant == {"mma_bf16": 0, "simt": 0}
+    assert tfa.kernel_launches == 0 and tfa.plain_calls == 0
+
+
+def _mma_bf16_emulated(q, k, v, *, scale, window=None, softcap=None,
+                       tile=64):
+    """The tensor-core kernel's arithmetic in plain torch, (B, H, S, D)
+    bf16 in: 64-row q and kv tiles, float32 logits and running max m, p
+    added into l in float32 and then rounded to bf16 for p.v, float32
+    accumulation, acc / max(l, 1e-30) rounded to bf16.  Dead tiles are
+    skipped as the kernel skips them."""
+    B, H, S, D = q.shape
+    g = H // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    out = torch.empty_like(q)
+    for q0 in range(0, S, tile):
+        rows = torch.arange(q0, min(q0 + tile, S))
+        qf = q[:, :, rows].float()
+        m = torch.full((B, H, len(rows), 1), -1e30)
+        l = torch.zeros((B, H, len(rows), 1))
+        acc = torch.zeros((B, H, len(rows), D))
+        kt_lo = max(0, q0 - window + 1) // tile if window else 0
+        for k0 in range(kt_lo * tile, rows[-1].item() + 1, tile):
+            keys = torch.arange(k0, min(k0 + tile, S))
+            s = qf @ kf[:, :, keys].transpose(-1, -2) * scale
+            if softcap is not None:
+                s = torch.tanh(s / softcap) * softcap
+            ok = keys[None, :] <= rows[:, None]
+            if window is not None:
+                ok &= (rows[:, None] - keys[None, :]) < window
+            s = torch.where(ok, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out
+
+
+# (S, H, KH, D, window, softcap): the bf16 kernel's tiles at every head
+# dim, ragged tails, and the served and trained paths' shapes (gemma3-1b's
+# H=4, KH=1, D=256, window 512 or none; recurrentgemma-9b's H=16, window
+# 2048; granite-moe-1b-a400m's H=16, KH=8, D=64), cut to B=1 where large
+EMU_CASES = [
+    (1, 4, 1, 256, 512, None), (17, 2, 1, 32, None, None),
+    (65, 4, 2, 64, None, None), (100, 2, 1, 128, None, None),
+    (130, 2, 1, 256, 64, 50.0), (511, 4, 1, 256, 512, None),
+    (511, 4, 1, 256, None, None), (300, 16, 1, 256, 2048, None),
+    (300, 16, 8, 64, None, None),
+]
+
+
+@pytest.mark.parametrize("S,H,KH,D,window,softcap", EMU_CASES)
+def test_mma_bf16_rounding_within_kernel_gate(S, H, KH, D, window,
+                                              softcap):
+    """The tensor-core kernel rounds p to bf16 before it is normalised
+    (as the TPU kernel does), the plain version after: the emulated
+    kernel must sit within the card's bf16 gate, 2e-2 * (1 + |plain|), of
+    the reference's oracle on the same inputs."""
+    (jq, jk, jv), _ = _inputs(S, H, KH, D, "bfloat16", B=1, seed=S + D)
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    want = jref.attention_ref(*(jnp.swapaxes(t, 1, 2) for t in (jq, jk, jv)),
+                              **kw)
+    q, k, v = (torch.from_numpy(np.array(jnp.swapaxes(t, 1, 2)
+                                         .astype(jnp.float32)))
+               .to(torch.bfloat16) for t in (jq, jk, jv))
+    got = _mma_bf16_emulated(q, k, v, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])

@@ -56,13 +56,64 @@ def test_flash_kernel_matches_plain(cuda, S, H, KH, D, window, softcap,
                for h in (H, KH, KH))
     kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
     before = tfa.kernel_launches
+    by_variant = dict(tfa.launches_by_variant)
     out = tfa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert tfa.kernel_launches == before + 1
+    # bf16 takes the tensor-core kernel, float32 the SIMT one
+    launched = "mma_bf16" if dtype == "bfloat16" else "simt"
+    assert tfa.launches_by_variant == dict(
+        by_variant, **{launched: by_variant[launched] + 1})
     ref = tfa.attention_ref(q, k, v, **kw)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# the tensor-core kernel at every head dim it takes, around its 16-row warp
+# tiles and 64-row block tiles, with and without a window; softcap 50 at
+# D=256 (gemma2's); and the SIMT kernel on the same bf16 inputs
+MMA_S = (1, 15, 16, 17, 63, 64, 65, 100, 511)
+MMA_CASES = ([(D, S, w, None) for D in tfa.HEAD_DIMS for S in MMA_S
+              for w in (512, None)]
+             + [(256, S, None, 50.0) for S in MMA_S])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,S,window,softcap", MMA_CASES)
+def test_flash_variants_match_plain_on_bf16(cuda, D, S, window, softcap):
+    rng = np.random.default_rng(S * 11 + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, h, D),
+                                                    dtype=np.float32))
+               .to(device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+               for h in (4, 2, 2))
+    kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=softcap)
+    ref = tfa.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                            **kw).transpose(1, 2).float().cpu().numpy()
+    for kind in tfa.VARIANTS:
+        before = dict(tfa.launches_by_variant)
+        out = tfa._launch(kind, q, k, v, out=None, **kw)
+        torch.cuda.synchronize()
+        assert tfa.launches_by_variant[kind] == before[kind] + 1
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref,
+                                   rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"], err_msg=kind)
+
+
+@pytest.mark.gpu
+def test_flash_mma_refuses_float32_and_misaligned_rows(cuda):
+    q = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        tfa._launch("mma_bf16", q, q[:, :1], q[:, :1], scale=1.0,
+                    causal=True, window=None, softcap=None, out=None)
+    # rows of 68 bf16 values: not 16-byte aligned, so the SIMT kernel runs
+    x = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)
+    qv = x[..., :64].transpose(1, 2)
+    assert tfa.variant(qv.dtype, 64, tfa.aligned(qv)) == "simt"
+    before = dict(tfa.launches_by_variant)
+    tfa.flash_attention_fwd(qv, qv[:, :1], qv[:, :1], scale=1.0)
+    torch.cuda.synchronize()
+    assert tfa.launches_by_variant["simt"] == before["simt"] + 1
 
 
 @pytest.mark.gpu

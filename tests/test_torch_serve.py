@@ -122,6 +122,9 @@ def _serve_matches_reference(cfgs, jax_params, transport, procs,
     assert res["plain_calls"] == {
         "flash_attention_fwd": res["prefills"] * cfg.n_layers,
         "ssd_fwd": 0, "rglru_fwd": 0}
+    assert res["launches_by_variant"] == {
+        "flash_attention_fwd": {"mma_bf16": 0, "simt": 0},
+        "ssd_fwd": {"mma_bf16": 0, "simt": 0}}
     assert all_requests(load, 2, cfg.vocab) == jall_requests(load, 2,
                                                              jcfg.vocab)
     recs = jrun_sequential(jcfg, jall_requests(load, 2, jcfg.vocab),
