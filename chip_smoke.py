@@ -8,11 +8,12 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Five main paths are driven, each at full width and
+raise on failure.  Six main paths are driven, each at full width and
 depth: serving gemma3-1b (flash attention), mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
-layers) and granite-moe-1b-a400m (flash attention at 16 heads, 8 KV heads
-of 64, and the MoE layer), and training gemma3-1b (flash attention in
+layers), granite-moe-1b-a400m (flash attention at 16 heads, 8 KV heads of
+64, and the MoE layer) and gemma2-2b (flash attention at 8 heads, 4 KV
+heads of 256 with softcap 50), and training gemma3-1b (flash attention in
 every forward):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
@@ -23,12 +24,15 @@ every forward):
    RG-LRU kernels must not spill;
 3. the flash kernels against their plain PyTorch version on the card, on
    the reference's test cases, ragged tails and the serving paths' shapes
-   (gemma3-1b's, recurrentgemma-9b's, the training forward's and
-   granite-moe-1b-a400m's), each row with the variant it launched (the
-   bf16 tensor-core kernel for bf16, the SIMT kernel for float32), with
-   CUDA-event and device times of the kernel, of the SIMT kernel on the
-   same inputs (held to the same gate), the plain version and one PyTorch
-   library call computing the same function (a yardstick only);
+   (gemma3-1b's, recurrentgemma-9b's, the training forward's,
+   granite-moe-1b-a400m's and gemma2-2b's), each row with the variant it
+   launched (the bf16 tensor-core kernel for bf16, the SIMT kernel for
+   float32), with CUDA-event and device times of the kernel, of the SIMT
+   kernel on the same inputs (held to the same gate), the plain version
+   and one PyTorch library call computing the same function (a yardstick
+   only, held to the plain version too: SDPA, or for gemma2-2b's
+   softcapped rows a compiled ``flex_attention`` with the tanh cap as its
+   score_mod; SDPA without the cap is timed apart, as another function);
 4. gemma3-1b with seeded random weights: prefill through the kernel
    against prefill through plain attention, float32 (gated) and bfloat16
    (reported);
@@ -118,7 +122,19 @@ every forward):
     an assignment are reported;
 23. where granite-moe-1b-a400m's serving time goes, as in phase 7, with
     the MoE steps' (route, dispatch, experts, combine) share of device
-    time.
+    time;
+24. gemma2-2b: prefill through the kernel against prefill through plain
+    attention, one parameter tree shared by both, bf16 at the port's init
+    (reported) and float32 at the port's init and at one layer's fan-in
+    (each gated unless the plain path's own float32 floor is above the
+    gate), with the pre-cap
+    attention logits of the first and last layer, and faults planted in
+    the plain path (the attention or final softcap dropped, the wrong KV
+    head), each of which some gated weight set must reject;
+25. gemma2-2b's main path: event-driven serving in bf16, counted as in
+    phase 5;
+26. float32 serving of gemma2-2b against the sequential baseline;
+27. where gemma2-2b's serving time goes, as in phase 7.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -236,6 +252,32 @@ NEAR_TIE = 1e-3           # a differing token is a near-tie below this gap
 # the serving path's flash shapes on recurrentgemma-9b's 12 local layers:
 # B=1, 16 heads, 1 KV head, head dim 256, window 2048, bf16
 RG_FA_SHAPE = dict(H=16, KH=1, D=256, window=2048)
+
+GEMMA2 = "gemma2-2b"
+# the serving path's flash shapes on gemma2-2b's 26 layers: B=1, 8 heads, 4
+# KV heads (GQA group 2), head dim 256, softcap 50, bf16; window 4096 on its
+# 13 local layers (past MAX_LEN, so here it masks no key), none on the 13
+# global ones
+GEMMA2_FA_SHAPE = dict(H=8, KH=4, D=256, softcap=50.0)
+GEMMA2_WINDOWS = (4096, None)
+# a softcapped row's library call: SDPA takes no softcap, so it is timed
+# beside the row as library_nocap_ms, another function
+CAP_LIBRARY = "torch.compile(flex_attention), tanh softcap as score_mod"
+# faults planted in phase 24's plain path (gemma2-2b): the attention softcap
+# dropped, the final softcap dropped, and query head h reading KV head
+# h % KH in place of h // (H / KH); the control expands K/V to the H query
+# heads by the right map (h // (H / KH)) through the same wrapper.  The
+# control must pass every gated float32 run, and each fault must fail the
+# gate in at least one gated weight set.  Phase 24's float32 weight sets
+# are the port's init and "layer_fan_in" (see _layer_fan_in), whose pre-cap
+# attention logits lie deep in the cap's flat tail and in its linear part
+# (phase 24 prints their share past SOFTCAP_BEND, where tanh(x / 50)
+# bends); a float32 run is gated unless the plain path's own float32 floor
+# (plain_f64_floor: its attention in float64) is above LOGIT_TOL at some S,
+# and then it is reported
+GEMMA2_CONTROL = "kv_expanded"
+GEMMA2_FAULTS = ("no_attn_softcap", "no_final_softcap", "gqa_mod")
+SOFTCAP_BEND = GEMMA2_FA_SHAPE["softcap"] / 2
 
 GRANITE = "granite-moe-1b-a400m"
 # the serving path's flash shapes on granite-moe-1b-a400m's 24 global
@@ -479,6 +521,35 @@ def _sdpa(q, k, v, *, scale, window):
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
+def _flex(q, k, v, *, scale, window, softcap):
+    """One call of ``flex_attention``, compiled for these inputs, with the
+    tanh softcap as its score_mod (on the scaled scores, before the mask,
+    as the plain version caps them) and the causal/window mask as its
+    block mask: the library yardstick of a softcapped row, timed here and
+    used nowhere in the port."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki <= qi
+        if window is not None:
+            keep = keep & (qi - ki < window)
+        return keep
+    S = q.shape[2]
+    mask = create_block_mask(mask_mod, None, None, S, S, device=q.device)
+    torch._dynamo.reset()       # each row compiles its own shape
+    call = torch.compile(flex_attention, dynamic=False)
+    # the attention kernel at every S (below 128 query rows, flex would
+    # pick its decoding kernel, which builds no config at D=256 with GQA)
+    return lambda: call(q, k, v, score_mod=score_mod, block_mask=mask,
+                        scale=scale, enable_gqa=True,
+                        kernel_options={"FORCE_USE_FLEX_ATTENTION": True})
+
+
 def phase_kernels(out):
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
@@ -491,6 +562,8 @@ def phase_kernels(out):
                    **RG_FA_SHAPE) for S in PATH_S]
     cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=GRANITE,
                    **GRANITE_FA_SHAPE) for S in PATH_S]
+    cases += [dict(S=S, window=w, dtype="bfloat16", B=1, path=GEMMA2,
+                   **GEMMA2_FA_SHAPE) for S in PATH_S for w in GEMMA2_WINDOWS]
     # the training forward's calls (phase 19): each rank's 2 x 512 tokens
     cases += [dict(S=TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
                    softcap=None, dtype="bfloat16",
@@ -539,8 +612,24 @@ def phase_kernels(out):
                     FA_ENTRY[v2], event_ms=row[key + "ms"])
             row["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v,
                                                                 **kw))
-            row["library_ms"] = cuda_ms(_sdpa(q, k, v, scale=kw["scale"],
-                                              window=c["window"]))
+            sdpa = _sdpa(q, k, v, scale=kw["scale"], window=c["window"])
+            library = sdpa
+            if c["softcap"] is not None:
+                library = _flex(q, k, v, scale=kw["scale"],
+                                window=c["window"], softcap=c["softcap"])
+                row.update(library=CAP_LIBRARY,
+                           library_nocap_ms=cuda_ms(sdpa))
+                # the path's kernel on the same inputs without the cap: what
+                # the softcap costs it
+                nocap = dict(kw, softcap=None)
+                row["nocap_device_ms"], _ = kernel_device_ms(
+                    lambda: ops._launch(FA_PATH_VARIANT[c["dtype"]], q, k, v,
+                                        out=None, **nocap),
+                    FA_ENTRY[FA_PATH_VARIANT[c["dtype"]]])
+            # the yardstick is held to the plain version at the same gate
+            row["library_max_abs_err"], library_ok = within(library())
+            row["ok"] = row["ok"] and library_ok
+            row["library_ms"] = cuda_ms(library)
             row.update(fa_bound(c["B"], c["H"], c["KH"], c["S"], c["D"],
                                 c["window"], c["dtype"]))
         log("flash_attention_fwd " + json.dumps(row))
@@ -634,63 +723,122 @@ def _prefill(model, tokens):
     return logits[0, -1].float()
 
 
+def _scan_fault(module, faulty):
+    """A planter (see MODEL_CHECKS): while open, the plain path's scan,
+    ``repro_torch.models.<module>._scan``, is ``faulty(fault)``."""
+    @contextlib.contextmanager
+    def plant(fault):
+        import importlib
+        mod = importlib.import_module(f"repro_torch.models.{module}")
+        sound = mod._scan
+        mod._scan = faulty(fault)
+        try:
+            yield
+        finally:
+            mod._scan = sound
+    return plant
+
+
+# phase_model's checks, one entry an arch.  "runs": (dtype, weight set,
+# prompt lengths) in order; a weight set (``_weight_set``) rescales the
+# kernel model's seeded parameters in place, and the plain model shares
+# them ("seeded": the port's init).  A float32 run is gated at LOGIT_TOL (the
+# SSD path: at FLOOR_FACTOR of its "chunk_floor" if that is larger) unless,
+# with "f64_floor", the plain path's own float32 floor (its attention in
+# float64) is above LOGIT_TOL at one of its lengths: then it is reported.
+# "plant" plants the "control", or one of "faults", in the plain path of
+# every float32 run, at the lengths "planted_at" allows; the control must
+# pass every gated run.  "rule" says what a gated fault must do: "every_s",
+# fail at every length of a gated run (only the faults that "gates" names
+# for that weight set, where it names some), or "some_set", fail in at
+# least one gated run.  "decode": a run over every PREFILL_S also runs one
+# 4-slot decode step (``_decode_check``).  "precap": a float32 run reads
+# the pre-cap attention logits of the first and the last layer at the
+# longest length.
+MODEL_CHECKS = {
+    GEMMA: dict(runs=(("float32", "seeded", PREFILL_S),
+                      ("bfloat16", "seeded", PREFILL_S))),
+    MAMBA: dict(runs=(("float32", "seeded", PREFILL_S),
+                      ("bfloat16", "seeded", PREFILL_S),
+                      ("float32", "mamba2_init", PREFILL_S)),
+                chunk_floor=True,
+                plant=_scan_fault("mamba2", lambda f: _faulty_scan(f)),
+                control=SSD_CONTROL, faults=SSD_FAULTS,
+                planted_at=lambda f, S, cfg: (f == "bf16_inputs"
+                                              or S > cfg.ssm.chunk),
+                rule="every_s", gates=LOGIT_FAULTS),
+    RGEMMA: dict(runs=(("bfloat16", "seeded", PREFILL_S),
+                       ("float32", "layer_fan_in", PREFILL_S),
+                       ("float32", "griffin_init", PREFILL_S)),
+                 plant=_scan_fault("rglru", lambda f: _faulty_rglru_scan(f)),
+                 control=RG_CONTROL, faults=RG_LOGIT_FAULTS,
+                 planted_at=lambda f, S, cfg: (f != "reset_128"
+                                               or S > RG_PIECE),
+                 rule="every_s"),
+    # float32 at granite's init runs at the longest S only: float32
+    # rounding alone decides its tokens (see _contraction_fan_in), so its
+    # floor is far above the gate and the run is reported
+    GRANITE: dict(runs=(("float32", "seeded", PREFILL_S[-1:]),
+                        ("bfloat16", "seeded", PREFILL_S),
+                        ("float32", "contraction_fan_in", PREFILL_S)),
+                  f64_floor=True, decode=True),
+    GEMMA2: dict(runs=(("bfloat16", "seeded", PREFILL_S),
+                       ("float32", "seeded", PREFILL_S),
+                       ("float32", "layer_fan_in", PREFILL_S)),
+                 f64_floor=True, precap=True,
+                 plant=lambda f: attention_fault(f),
+                 control=GEMMA2_CONTROL, faults=GEMMA2_FAULTS,
+                 rule="some_set"),
+}
+
+
+def _weight_set(name, model):
+    """Rescale ``model``'s seeded parameters in place as the weight set
+    ``name`` draws them ("seeded": the port's init, left as it is)."""
+    if name == "contraction_fan_in":
+        _contraction_fan_in(model)
+    if name == "mamba2_init":
+        _mamba2_init(model.params.to_dict())
+    if name in ("layer_fan_in", "griffin_init"):
+        _layer_fan_in(model)
+    if name == "griffin_init":
+        _griffin_init(model.params.to_dict())
+
+
 def phase_model(out, arch):
     """Full-width, full-depth prefill through the kernels against prefill
     through the plain versions, same weights (one parameter tree shared by
-    both models): float32 gated, bf16 shown.  Every prefill of the kernel
-    path must launch each kernel once per layer of its kind and call no
-    plain version.
+    both models): float32 gated, bf16 shown, the runs and checks of each
+    arch as MODEL_CHECKS gives them.  Every prefill of the kernel path
+    must launch each kernel once per layer of its kind and call no plain
+    version.
 
     For the SSD path the plain version also runs at half the chunk size,
     an exact reformulation of the same scan: the two plain runs differ by
     float32 rounding alone, amplified through 48 layers, and that
-    difference (``floor``) is this model's noise floor.  The float32 gate
-    is then the larger of LOGIT_TOL and FLOOR_FACTOR floors; planted in the
-    plain path, the control must pass it and each of LOGIT_FAULTS fail
-    it.  For the RG-LRU path the gate is LOGIT_TOL, and the control and
-    RG_LOGIT_FAULTS are planted in its plain scan the same way; its bf16 run
-    is at the port's init and its float32 runs at the weight sets named
-    beside RG_LOGIT_FAULTS.  For granite-moe-1b-a400m the plain path
-    routes every token as the kernel path did (``_routed_as``; the tokens
-    whose own top-k differs are counted as ``routing_flips``), float32
-    is gated at the ``contraction_fan_in`` weights and reported at the
-    port's init at the longest S only, where float32 rounding alone
-    decides its tokens (see ``_contraction_fan_in``; ``plain_f64_floor``
-    shows it), and the gated run and bf16 also run one 4-slot decode step
-    (``_decode_check``)."""
+    difference (``plain_floor``) is this model's noise floor.  For
+    granite-moe-1b-a400m the plain path routes every token as the kernel
+    path did (``_routed_as``; the tokens whose own top-k differs are
+    counted as ``routing_flips``), and so does its float64-attention
+    floor (``plain_f64_floor``)."""
     import torch
+    checks = MODEL_CHECKS[arch]
+    control, gates = checks.get("control"), checks.get("gates")
     res = {}
-    runs = [("float32", "seeded"), ("bfloat16", "seeded")]
-    if arch == MAMBA:
-        runs.append(("float32", "mamba2_init"))
-    if arch == RGEMMA:
-        runs = [("bfloat16", "seeded"), ("float32", "layer_fan_in"),
-                ("float32", "griffin_init")]
-    if arch == GRANITE:
-        runs.append(("float32", "contraction_fan_in"))
-    for dtype, weights in runs:
-        # float32 at granite's init is reported, not gated, at one S
-        port_init_f32 = (arch, dtype, weights) == (GRANITE, "float32",
-                                                   "seeded")
-        logit_gate = dtype == "float32" and not port_init_f32
+    for dtype, weights, lengths in checks["runs"]:
+        f32 = dtype == "float32"
         kmodel = _full_model(arch, dtype, "kernel")
-        if weights == "contraction_fan_in":
-            _contraction_fan_in(kmodel)
-        if weights == "mamba2_init":
-            _mamba2_init(kmodel.params.to_dict())
-        if weights in ("layer_fan_in", "griffin_init"):
-            _layer_fan_in(kmodel)
-        if weights == "griffin_init":
-            _griffin_init(kmodel.params.to_dict())
+        _weight_set(weights, kmodel)
         expected = path_kernels(kmodel.cfg)
         rmodel = _full_model(arch, dtype, "ref",
                              params=kmodel.params.to_dict())
         cmodel = (_full_model(arch, dtype, "ref",
                               params=kmodel.params.to_dict(),
                               chunk=kmodel.cfg.ssm.chunk // 2)
-                  if arch == MAMBA and dtype == "float32" else None)
+                  if checks.get("chunk_floor") and f32 else None)
         g = torch.Generator(device="cuda").manual_seed(1)
-        for S in PREFILL_S[-1:] if port_init_f32 else PREFILL_S:
+        rows = []
+        for S in lengths:
             toks = torch.randint(0, kmodel.cfg.vocab, (1, S), generator=g,
                                  device="cuda")
             before, fa_before = _counts(), _fa_variants()
@@ -706,23 +854,17 @@ def phase_model(out, arch):
             if cmodel is not None:
                 floor = float((_prefill(cmodel, toks) - lr).abs().max())
             gate = max(LOGIT_TOL, FLOOR_FACTOR * (floor or 0.0))
-            if cmodel is not None:
-                faults = {f: _planted_fault(arch, rmodel, toks, lr, f, gate)
-                          for f in (SSD_CONTROL,) + SSD_FAULTS
-                          if f == "bf16_inputs" or S > rmodel.cfg.ssm.chunk}
-                control, gated = SSD_CONTROL, LOGIT_FAULTS[weights]
-            elif arch == RGEMMA and dtype == "float32":
-                faults = {f: _planted_fault(arch, rmodel, toks, lr, f, gate)
-                          for f in (RG_CONTROL,) + RG_LOGIT_FAULTS
-                          if f != "reset_128" or S > RG_PIECE}
-                control, gated = RG_CONTROL, RG_LOGIT_FAULTS
-            else:
-                faults, control, gated = {}, None, ()
-            for f, r in faults.items():   # at the floor's scale: reported
-                r["gated"] = f == control or f in gated
+            faults = {}
+            if f32 and "plant" in checks:
+                planted_at = checks.get("planted_at", lambda f, S, cfg: True)
+                faults = {f: _planted_fault(checks["plant"], rmodel, toks, lr,
+                                            f, gate)
+                          for f in (control,) + checks["faults"]
+                          if planted_at(f, S, rmodel.cfg)}
             t_k = _host_ms(lambda: _prefill(kmodel, toks))
             t_r = _host_ms(lambda: _prefill(rmodel, toks))
-            row = {"arch": arch, "dtype": dtype, "weights": weights, "S": S,
+            row = {"arch": arch, "dtype": dtype,
+                   "weights": weights, "S": S,
                    "max_logit_diff": diff, "same_first_token": same,
                    "max_abs_logit": float(lr.abs().max()),
                    "plain_floor": floor, "gate": gate,
@@ -731,16 +873,20 @@ def phase_model(out, arch):
                    "flash_launches_by_variant": fa_by_variant,
                    "prefill_ms_kernel_path": t_k,
                    "prefill_ms_plain_path": t_r}
-            if arch == GRANITE:
+            if kmodel.cfg.moe is not None:
                 row.update(moe_dropped=sum(drops),
                            moe_assignments=_assignments(kmodel.cfg, S),
-                           routing_flips=sum(flips), gated=logit_gate)
-                if dtype == "float32" and S == PREFILL_S[-1]:
-                    with _routed_as(choices), _f64_attention():
-                        lf = _prefill(rmodel, toks)
-                    row["plain_f64_floor"] = float((lf - lr).abs().max())
-            log("model " + json.dumps(row))
-            res[f"{dtype}_S{S}_{weights}"] = row
+                           routing_flips=sum(flips))
+            if f32 and checks.get("f64_floor"):
+                row["plain_f64_floor"] = _f64_floor(rmodel, toks, lr,
+                                                    choices)
+            if f32 and checks.get("precap") and S == lengths[-1]:
+                last = len(rmodel.cfg.layer_kinds()) - 1
+                with _precap_logits((0, last)) as precap:
+                    _prefill(rmodel, toks)
+                row["precap_attention_logits"] = {
+                    f"layer {n}": st for n, st in precap.items()}
+            rows.append(row)
             if not torch.isfinite(lk).all():
                 raise AssertionError(f"non-finite logits: {row}")
             if launched != expected or plain:
@@ -752,19 +898,44 @@ def phase_model(out, arch):
                     "flash_attention_fwd", 0):
                 raise AssertionError(f"{dtype} prefill launched flash "
                                      f"variants {fa_by_variant}")
-            if logit_gate and (diff > gate or not same):
+        # gated unless the plain path's own floor is above the gate
+        gated = f32 and all(r.get("plain_f64_floor", 0.0) <= LOGIT_TOL
+                            for r in rows)
+        for row in rows:
+            row["gated"] = gated
+            for f, r in row["planted_faults"].items():
+                r["gated"] = gated and (f == control or gates is None
+                                        or f in gates[row["weights"]])
+            log("model " + json.dumps(row))
+            res[f"{dtype}_S{row['S']}_{row['weights']}"] = row
+            if gated and (row["max_logit_diff"] > row["gate"]
+                          or not row["same_first_token"]):
                 raise AssertionError(f"float32 kernel path disagrees: {row}")
-            missed = [f for f, r in faults.items() if r["gated"]
-                      and r["rejected"] == (f == control)]
+            missed = [f for f, r in row["planted_faults"].items()
+                      if r["gated"] and r["rejected"] == (f == control)
+                      and (f == control or checks["rule"] == "every_s")]
             if missed:
                 raise AssertionError(f"the float32 gate does not tell the "
                                      f"control from planted faults: "
                                      f"{missed}: {row}")
-        if arch == GRANITE and not port_init_f32:
+        if checks.get("decode") and lengths == PREFILL_S:
             res[f"{dtype}_decode_b4_{weights}"] = _decode_check(
-                kmodel, rmodel, weights, g, logit_gate)
+                kmodel, rmodel, weights, g, gated)
         del kmodel, rmodel, cmodel
         _free()
+    if checks.get("rule") == "some_set":
+        # the gated weight sets whose gate rejects each planted fault
+        by_fault = {f: sorted({r["weights"] for r in res.values()
+                               if r["gated"] and f in r["planted_faults"]
+                               and r["planted_faults"][f]["rejected"]})
+                    for f in checks["faults"]}
+        log("model " + json.dumps({"arch": arch,
+                                   "faults_rejected_by": by_fault}))
+        res["faults_rejected_by"] = by_fault
+        missed = [f for f, sets in by_fault.items() if not sets]
+        if missed:
+            raise AssertionError(f"no gated float32 weight set rejects the "
+                                 f"planted faults {missed}")
     out[f"model_{arch}"] = res
 
 
@@ -808,6 +979,89 @@ def _f64_attention():
     attention.ref_attention = f64
     try:
         yield
+    finally:
+        attention.ref_attention = plain
+
+
+def _f64_floor(rmodel, toks, lr, choices):
+    """The plain path's own float32 floor on ``toks``: the distance of its
+    last logits ``lr`` from the same prefill with its attention in float64,
+    routed (``_routed_as``) as ``choices`` holds."""
+    with _routed_as(choices), _f64_attention():
+        lf = _prefill(rmodel, toks)
+    return float((lf - lr).abs().max())
+
+
+@contextlib.contextmanager
+def attention_fault(fault):
+    """Plant one of GEMMA2_FAULTS, or GEMMA2_CONTROL, in the plain
+    attention path while open (None: nothing): ``no_attn_softcap`` calls
+    the plain attention without its cap, ``no_final_softcap`` leaves the
+    logits uncapped, ``gqa_mod`` gives query head h KV head h % KH, and
+    ``kv_expanded`` KV head h // (H / KH), the right one, by the same
+    expansion of K and V to H heads."""
+    import torch
+    from repro_torch.models import attention, lm
+    plain, capped = attention.ref_attention, lm.softcap
+
+    def expanded(head_map):
+        def call(q, k, v, **kw):
+            H, KH = q.shape[2], k.shape[2]
+            idx = head_map(torch.arange(H, device=k.device), H, KH)
+            return plain(q, k[:, :, idx], v[:, :, idx], **kw)
+        return call
+    if fault == "no_attn_softcap":
+        attention.ref_attention = lambda *a, **kw: plain(*a, **dict(kw,
+                                                                    cap=None))
+    elif fault == "no_final_softcap":
+        lm.softcap = lambda x, cap: x
+    elif fault == "gqa_mod":
+        attention.ref_attention = expanded(lambda h, H, KH: h % KH)
+    elif fault == GEMMA2_CONTROL:
+        attention.ref_attention = expanded(lambda h, H, KH: h // (H // KH))
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        attention.ref_attention, lm.softcap = plain, capped
+
+
+@contextlib.contextmanager
+def _precap_logits(calls):
+    """Record, while open, the pre-cap attention logits of the plain
+    attention calls numbered in ``calls`` (0 is the first; a prefill makes
+    one a layer, in layer order), over the (query, key) pairs its masks
+    keep: their rms, largest magnitude and the share past SOFTCAP_BEND,
+    into the dict it yields, keyed by call number."""
+    import torch
+    from repro_torch.models import attention
+    plain, stats, seen = attention.ref_attention, {}, [0]
+
+    def recorded(q, k, v, *, scale, q_pos, k_pos, window, cap, causal=True):
+        n, seen[0] = seen[0], seen[0] + 1
+        if n in calls:
+            B, Sq, H, D = q.shape
+            KH = k.shape[2]
+            x = torch.einsum("bqkgd,bskd->bkgqs",
+                             q.reshape(B, Sq, KH, H // KH, D).float(),
+                             k.float()) * scale
+            keep = k_pos[:, None, :] >= 0
+            if causal:
+                keep = keep & (k_pos[:, None, :] <= q_pos[:, :, None])
+            if window is not None:
+                keep = keep & ((q_pos[:, :, None] - k_pos[:, None, :])
+                               < window)
+            x = x[keep[:, None, None].expand_as(x)]
+            stats[n] = {"rms": float(x.square().mean().sqrt()),
+                        "max_abs": float(x.abs().max()),
+                        "share_past_bend": float(
+                            (x.abs() > SOFTCAP_BEND).float().mean())}
+        return plain(q, k, v, scale=scale, q_pos=q_pos, k_pos=k_pos,
+                     window=window, cap=cap, causal=causal)
+    attention.ref_attention = recorded
+    try:
+        yield stats
     finally:
         attention.ref_attention = plain
 
@@ -1060,26 +1314,12 @@ def _faulty_scan(fault):
     return scan
 
 
-def _plain_variant(arch, rmodel, toks, fault):
-    """Last logits of a prefill of the plain model with ``fault`` planted
-    in its scan (the SSD scan of mamba2-370m, the RG-LRU scan of
-    recurrentgemma-9b)."""
-    from repro_torch.models import mamba2, rglru
-    mod, faulty = ((mamba2, _faulty_scan(fault)) if arch == MAMBA
-                   else (rglru, _faulty_rglru_scan(fault)))
-    sound = mod._scan
-    mod._scan = faulty
-    try:
-        return _prefill(rmodel, toks)
-    finally:
-        mod._scan = sound
-
-
-def _planted_fault(arch, rmodel, toks, lr, fault, gate):
-    """The plain model's prefill with ``fault`` planted in its scan: its
-    last logits' distance from the sound plain path's, and whether the
-    float32 gate rejects it."""
-    lf = _plain_variant(arch, rmodel, toks, fault)
+def _planted_fault(plant, rmodel, toks, lr, fault, gate):
+    """The plain model's prefill with ``fault`` planted by ``plant`` (a
+    MODEL_CHECKS planter): its last logits' distance from the sound plain
+    path's, and whether the float32 gate rejects it."""
+    with plant(fault):
+        lf = _prefill(rmodel, toks)
     diff = float((lf - lr).abs().max())
     same = int(lf.argmax()) == int(lr.argmax())
     return {"max_logit_diff": diff, "same_first_token": same,
@@ -1219,7 +1459,8 @@ def phase_parity(out, arch):
     recurrentgemma-9b both serve the ``layer_fan_in`` weights (passed as
     ``params``): at the port's init float32 rounding alone moves its logits
     by O(1), past their top-2 gaps (see RG_LOGIT_FAULTS), so batched and
-    sequential serving, whose products round differently, part early."""
+    sequential serving, whose products round differently, part early.
+    gemma2-2b serves the port's init, where phase 24 gates float32."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.serve import all_requests, run_sequential, run_serve
@@ -2393,6 +2634,10 @@ PHASES = {
     22: ("granite-moe-1b-a400m float32 serving", phase_replay),
     23: ("granite-moe-1b-a400m profile",
          lambda out: phase_profile(out, GRANITE)),
+    24: ("gemma2-2b model", lambda out: phase_model(out, GEMMA2)),
+    25: ("gemma2-2b serve (main path)", lambda out: phase_serve(out, GEMMA2)),
+    26: ("gemma2-2b parity", lambda out: phase_parity(out, GEMMA2)),
+    27: ("gemma2-2b profile", lambda out: phase_profile(out, GEMMA2)),
 }
 
 
@@ -2453,22 +2698,27 @@ def kernels_line(out):
                          bound_by=timed["bound_by"],
                          library_ms=timed["library_ms"])
         if name == "flash_attention_fwd":
-            # granite-moe-1b-a400m's shape (H=16, KH=8, D=64, no window)
-            # at S=511, timed as the entry's
-            g = next((r for r in rows if r["path"] == GRANITE
-                      and r["S"] == TIMED[0]), None)
-            entry["granite"] = g and {
-                k: g[k] for k in ("B", "S", "H", "KH", "D", "window",
-                                  "dtype", "variant", "max_abs_err", "ms",
-                                  "device_ms", "simt_ms", "simt_device_ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}
-            # the variant the timed shape launched, the main paths'
-            # launches by variant, and the SIMT kernel on the same inputs
+            # the main paths' launches by variant
             by_variant = out.get("flash_main_path_by_variant", {})
-            if entry["granite"]:
-                entry["granite"]["launches_by_variant"] = by_variant.get(
-                    GRANITE)
+            # granite-moe-1b-a400m's shape (H=16, KH=8, D=64) and gemma2-2b's
+            # (H=8, KH=4, D=256, softcap 50), no window, at S=511, timed as
+            # the entry's
+            for key, arch in (("granite", GRANITE), ("gemma2", GEMMA2)):
+                g = next((r for r in rows if r["path"] == arch
+                          and r["S"] == TIMED[0] and r["window"] is None),
+                         None)
+                entry[key] = g and {
+                    k: g.get(k) for k in (
+                        "B", "S", "H", "KH", "D", "window", "softcap",
+                        "dtype", "variant", "max_abs_err", "ms", "device_ms",
+                        "simt_ms", "simt_device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "library",
+                        "library_max_abs_err", "library_nocap_ms",
+                        "nocap_device_ms")}
+                if entry[key]:
+                    entry[key]["launches_by_variant"] = by_variant.get(arch)
+            # the variant the timed shape launched, the main paths' launches
+            # by variant summed, and the SIMT kernel on the same inputs
             entry["variant"] = timed["variant"] if timed else None
             entry["launches_by_variant"] = {
                 v: sum(n[v] for n in by_variant.values())

@@ -79,14 +79,34 @@ MMA_CASES = ([(D, S, w, None) for D in tfa.HEAD_DIMS for S in MMA_S
              + [(256, S, None, 50.0) for S in MMA_S])
 
 
+# gemma2-2b's prefill shape: B=1, 8 heads, 4 KV heads (GQA group 2), head
+# dim 256, softcap 50; window 4096 on its local layers, none on its global
+GEMMA2_CASES = [(S, w) for S in (1, 65, 100, 511) for w in (4096, None)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,S,window,softcap", MMA_CASES)
 def test_flash_variants_match_plain_on_bf16(cuda, D, S, window, softcap):
-    rng = np.random.default_rng(S * 11 + D)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, h, D),
+    _variants_match_plain(cuda, 2, S, 4, 2, D, window, softcap,
+                          seed=S * 11 + D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", GEMMA2_CASES)
+def test_flash_variants_match_plain_at_gemma2_shape(cuda, S, window):
+    _variants_match_plain(cuda, 1, S, 8, 4, 256, window, 50.0,
+                          seed=S * 13 + 256)
+
+
+def _variants_match_plain(cuda, B, S, H, KH, D, window, softcap, seed):
+    """Both flash variants through the private ``_launch`` on bf16 inputs
+    in the model's layout (transposed views of (B, S, H, D)), each held
+    to the plain version at the bf16 tolerance."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D),
                                                     dtype=np.float32))
                .to(device=cuda, dtype=torch.bfloat16).transpose(1, 2)
-               for h in (4, 2, 2))
+               for h in (H, KH, KH))
     kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=softcap)
     ref = tfa.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
                             **kw).transpose(1, 2).float().cpu().numpy()

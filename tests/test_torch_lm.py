@@ -7,6 +7,8 @@ stacked segment (leading ``layers`` axis), the layout the full model uses.
 Reduced granite-moe-1b-a400m (E=8, k=2) is a stacked pair of MoE layers:
 at capacity 8 (no drops), at capacity 1.25 (its 4-row decode batch drops
 assignments) and with a leading ``dense_big`` layer before the pair.
+Reduced gemma2-2b at 4 layers is the unit (local, attn) stacked twice,
+with attention softcap 50, final softcap 30 and window 64.
 """
 import dataclasses
 import os
@@ -37,18 +39,41 @@ import chip_smoke                                            # noqa: E402
 # float32 on both sides through ~12 layers: summation order only
 TOL = 1e-4
 GRANITE = "granite-moe-1b-a400m"
-# id: (arch, layers, MoE overrides, decode batch, stacked segment)
+# The leaves whose absolute limit scales with the leaf's largest magnitude
+# (``_atol``), where the reference's init draws a stacked leaf at the fan-in
+# of its layers axis (2 reps here) and float32 rounding alone moves them
+# past TOL (the port against itself in float64).  granite-moe-1b-a400m:
+# its grads reach ~12 (activations run to the hundreds) and its embedding
+# grad moves by 3.5e-4 (JAX's float32 by 6.6e-4).  gemma2-2b: ``wq``/``wk``
+# /``wv`` drawn at 2 reps, not d_model 128, put the pre-cap attention
+# logits at an rms of ~65 (the softcap of 50 bends) and the K/V caches at
+# ~36, moved by up to 3.7e-4, and its embedding grad (largest 1.96) by
+# 8.2e-5 (JAX's float32 by 1.7e-4).  Logits and losses stay within TOL.
+GRADS, CACHES = ("grads",), ("grads", "caches")
+# id: (arch, layers, MoE overrides, decode batch, stacked segment, the
+# leaves whose limit scales)
 MODELS = {
-    "L6": ("gemma3-1b", 6, {}, 2, False),
-    "L12": ("gemma3-1b", 12, {}, 2, True),
-    "granite": (GRANITE, 2, {}, 4, True),
-    "granite-cap1.25": (GRANITE, 2, {"capacity_factor": 1.25}, 4, True),
-    "granite-dense1": (GRANITE, 3, {"first_dense": 1}, 4, False),
+    "L6": ("gemma3-1b", 6, {}, 2, False, ()),
+    "L12": ("gemma3-1b", 12, {}, 2, True, ()),
+    "granite": (GRANITE, 2, {}, 4, True, GRADS),
+    "granite-cap1.25": (GRANITE, 2, {"capacity_factor": 1.25}, 4, True,
+                        GRADS),
+    "granite-dense1": (GRANITE, 3, {"first_dense": 1}, 4, False, GRADS),
+    "gemma2": ("gemma2-2b", 4, {}, 2, True, CACHES),
 }
 
 
+def _atol(spec, leaves, leaf):
+    """The absolute limit for ``leaf``, one of ``leaves`` ("grads" or
+    "caches"): TOL, scaled by the leaf's largest magnitude (at least 1)
+    where the case's spec says so."""
+    if leaves not in spec[5]:
+        return TOL
+    return TOL * max(1.0, float(np.abs(np.asarray(leaf)).max()))
+
+
 def _models(name):
-    arch, n_layers, over, _, _ = MODELS[name]
+    arch, n_layers, over = MODELS[name][:3]
     jcfg = jreduce(JARCHS[arch].cfg).replace(n_layers=n_layers)
     cfg = reduce_cfg(ARCHS[arch].cfg).replace(n_layers=n_layers)
     if over:
@@ -111,7 +136,7 @@ def test_loss_grad_matches(models):
     included) equal the reference's, leaf for leaf — also after a forward
     without autograd has run (cached per-layer views must not cut the
     stacked parameters off the graph)."""
-    jm, jparams, tm, _ = models
+    jm, jparams, tm, spec = models
     rng = np.random.default_rng(2)
     toks = rng.integers(0, tm.cfg.vocab, size=(2, 24)).astype(np.int32)
     labels = np.roll(toks, -1, axis=1)
@@ -129,16 +154,11 @@ def test_loss_grad_matches(models):
         for k in path:
             node = node[k.key]
         assert node is not None, path
-        # granite's grads reach ~12 at the reference's init (a stacked
-        # expert leaf's fan-in is its layers axis, 2 here, so activations
-        # run to the hundreds), and float32 rounding alone then moves its
-        # embedding grad by 3.5e-4 (the port against itself in float64;
-        # JAX's float32 by 6.6e-4): its absolute limit scales with the
-        # leaf's largest grad.  gemma3-1b's stays TOL.
-        scale = (1.0 if tm.cfg.moe is None
-                 else max(1.0, float(np.abs(np.asarray(leaf)).max())))
+        # granite's and gemma2-2b's limits scale (see MODELS);
+        # gemma3-1b's stays TOL
         np.testing.assert_allclose(node.numpy(), np.asarray(leaf),
-                                   rtol=TOL, atol=TOL * scale,
+                                   rtol=TOL,
+                                   atol=_atol(spec, "grads", leaf),
                                    err_msg=str(path))
 
 
@@ -170,7 +190,7 @@ def test_prefill_and_greedy_decode_match(models, drops):
     for leaf_t, leaf_j in zip(jax.tree.leaves(bridge.cache_to_numpy(tcache)),
                               jax.tree.leaves(jcache)):
         np.testing.assert_allclose(leaf_t, np.asarray(leaf_j), rtol=TOL,
-                                   atol=TOL)
+                                   atol=_atol(spec, "caches", leaf_j))
     jtok = jnp.argmax(jlog[:, -1], -1)[:, None].astype(jnp.int32)
     ttok = torch.argmax(tlog[:, -1], -1)[:, None]
     for i in range(steps):
@@ -188,6 +208,97 @@ def test_prefill_and_greedy_decode_match(models, drops):
     assert len(drops) == moe_layers * (1 + steps)
     assert (sum(drops) > 0) == (tm.cfg.moe is not None
                                 and tm.cfg.moe.capacity_factor < 8)
+
+
+# the reduced configs cut the window to 64 (``configs/base.py``): a
+# sequence past 65 tokens is where a local layer's window masks keys
+WINDOWED = [n for n, spec in MODELS.items()
+            if "local" in reduce_cfg(ARCHS[spec[0]].cfg).pattern]
+LONG = 80
+
+
+@pytest.mark.parametrize("models", WINDOWED, indirect=True)
+def test_window_masks_keys_past_its_length(models):
+    """80 tokens, past the window of 64: the loss matches the reference's
+    (the mask bites: widening the window past the sequence moves the
+    logits from position 64 on, and no earlier one), and so do a prefill
+    of the first 64 tokens and 16 teacher-forced decode steps to position
+    79, over which the local caches wrap their ring buffers."""
+    jm, jparams, tm, _ = models
+    W = tm.cfg.window
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, tm.cfg.vocab, size=(2, LONG)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    jl, _ = jax.jit(jm.loss)(jparams, {"tokens": jnp.asarray(toks),
+                                       "labels": jnp.asarray(labels)})
+    batch = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(labels).long()}
+    wide = build_model(tm.cfg.replace(window=2 * LONG)).set_params(
+        tm.params.to_dict())
+    with torch.no_grad():
+        tl, _ = tm.loss(batch)
+        lg, lw = (m.logits(m.forward(m.embed(batch["tokens"]),
+                                     positions=m._positions(
+                                         batch["tokens"]))[0])
+                  for m in (tm, wide))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL, atol=TOL)
+    # the window changes no position before W and moves the later ones
+    assert torch.equal(lg[:, :W], lw[:, :W])
+    assert float((lg[:, W:] - lw[:, W:]).abs().max()) > 100 * TOL
+    jcache = jm.init_cache(2, LONG)
+    jlog, jcache = jax.jit(jm.prefill)(jparams, jnp.asarray(toks[:, :W]),
+                                       jcache)
+    with torch.inference_mode():
+        tlog, tcache = tm.prefill(torch.from_numpy(toks[:, :W]).long(),
+                                  tm.init_cache(2, LONG))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=TOL,
+                               atol=TOL)
+    jdecode = jax.jit(jm.decode_step)
+    for p in range(W, LONG):
+        pos = np.full((2, 1), p, np.int32)
+        tok = toks[:, p:p + 1]
+        jlog, jcache = jdecode(jparams, jcache, jnp.asarray(tok),
+                               jnp.asarray(pos))
+        with torch.inference_mode():
+            tlog, tcache = tm.decode_step(tcache, torch.from_numpy(tok).long(),
+                                          torch.from_numpy(pos))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=TOL,
+                                   atol=TOL, err_msg=f"position {p}")
+
+
+@pytest.mark.parametrize("models", ["gemma2"], indirect=True)
+def test_gemma2_planted_faults_move_the_plain_path(models):
+    """The faults that ``chip_smoke`` plants in gemma2-2b's plain attention
+    path (``attention_fault``) each move its last logits past the chip
+    check's float32 gate, while its control (K/V expanded to the query
+    heads by the right map) and the kernel route stay within TOL of the
+    sound plain path; ``_precap_logits`` reads the logits that the plain
+    attention then softcaps, over the pairs its masks keep."""
+    _, _, tm, _ = models
+    plain = build_model(tm.cfg.replace(attn_impl="ref")).set_params(
+        tm.params.to_dict())
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, tm.cfg.vocab, size=(1, 40)))
+
+    def last(m):
+        with torch.inference_mode():
+            lg, _ = m.prefill(toks, m.init_cache(1, 64))
+        return lg[0, -1]
+    want = last(plain)
+    np.testing.assert_allclose(last(tm).numpy(), want.numpy(), rtol=TOL,
+                               atol=TOL)
+    for fault in (chip_smoke.GEMMA2_CONTROL,) + chip_smoke.GEMMA2_FAULTS:
+        with chip_smoke.attention_fault(fault):
+            diff = float((last(plain) - want).abs().max())
+        assert (diff > chip_smoke.LOGIT_TOL) == (
+            fault != chip_smoke.GEMMA2_CONTROL), (fault, diff)
+    with chip_smoke._precap_logits((0, 3)) as precap:
+        torch.testing.assert_close(last(plain), want, rtol=0, atol=0)
+    assert sorted(precap) == [0, 3]
+    # the reference's init drives the pre-cap logits past the bend
+    for st in precap.values():
+        assert st["max_abs"] >= st["rms"] > chip_smoke.SOFTCAP_BEND
+        assert 0 < st["share_past_bend"] < 1
 
 
 def test_prefill_refuses_used_cache(models):

@@ -44,6 +44,7 @@ pytestmark = pytest.mark.timeout(600)
 
 ARCH = "gemma3-1b"
 GRANITE = "granite-moe-1b-a400m"
+GEMMA2 = "gemma2-2b"
 MAX_LEN = 48
 
 
@@ -66,6 +67,17 @@ def granite():
     jcfg = jreduce(JARCHS[GRANITE].cfg)
     eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
     return ((reduce_cfg(ARCHS[GRANITE].cfg), jcfg),
+            jax.tree.map(np.asarray, eng.params))
+
+
+@pytest.fixture(scope="module")
+def gemma2():
+    """Reduced gemma2-2b (a local and a global layer, attention softcap
+    50, final softcap 30): (port cfg, reference cfg) and the reference
+    engine's weights."""
+    jcfg = jreduce(JARCHS[GEMMA2].cfg)
+    eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
+    return ((reduce_cfg(ARCHS[GEMMA2].cfg), jcfg),
             jax.tree.map(np.asarray, eng.params))
 
 
@@ -154,6 +166,16 @@ def test_run_serve_granite_matches_reference_sequential(granite):
     sequential tokens."""
     cfgs, params = granite
     _serve_matches_reference(cfgs, params, "inproc", None, arch=GRANITE)
+
+
+def test_run_serve_gemma2_matches_reference_sequential(gemma2):
+    """Reduced gemma2-2b served in-proc (softcapped attention through the
+    flash route in every prefill, softcapped decode attention over the
+    caches, the final softcap on every step's logits) answers every
+    request with the reference's sequential tokens."""
+    cfgs, params = gemma2
+    assert cfgs[0].n_layers == 2
+    _serve_matches_reference(cfgs, params, "inproc", None, arch=GEMMA2)
 
 
 def test_recorded_calls_rebuild_tokens_and_replay(granite):
