@@ -8,13 +8,14 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Six main paths are driven, each at full width and
+raise on failure.  Seven main paths are driven, each at full width and
 depth: serving gemma3-1b (flash attention), mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
 layers), granite-moe-1b-a400m (flash attention at 16 heads, 8 KV heads of
-64, and the MoE layer) and gemma2-2b (flash attention at 8 heads, 4 KV
-heads of 256 with softcap 50), and training gemma3-1b (flash attention in
-every forward):
+64, and the MoE layer), gemma2-2b (flash attention at 8 heads, 4 KV heads
+of 256 with softcap 50) and stablelm-1.6b (flash attention at 32 heads
+and 32 KV heads of 64, layernorm, partial rotary), and training gemma3-1b
+(flash attention in every forward):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -25,7 +26,8 @@ every forward):
 3. the flash kernels against their plain PyTorch version on the card, on
    the reference's test cases, ragged tails and the serving paths' shapes
    (gemma3-1b's, recurrentgemma-9b's, the training forward's,
-   granite-moe-1b-a400m's and gemma2-2b's), each row with the variant it
+   granite-moe-1b-a400m's, gemma2-2b's and stablelm-1.6b's), each row
+   with the variant it
    launched (the bf16 tensor-core kernel for bf16, the SIMT kernel for
    float32), with CUDA-event and device times of the kernel, of the SIMT
    kernel on the same inputs (held to the same gate), the plain version
@@ -134,7 +136,19 @@ every forward):
 25. gemma2-2b's main path: event-driven serving in bf16, counted as in
     phase 5;
 26. float32 serving of gemma2-2b against the sequential baseline;
-27. where gemma2-2b's serving time goes, as in phase 7.
+27. where gemma2-2b's serving time goes, as in phase 7;
+28. stablelm-1.6b: prefill through the kernel against prefill through
+    plain attention, one parameter tree shared by both, bf16 at the
+    port's init (reported) and float32 at the port's init (gated unless
+    the plain path's own float32 floor is above the gate) and at one
+    layer's fan-in (gated), with the pre-softmax attention logits of the
+    first and last layer, and faults planted in the plain path (the
+    wrong KV head, one key past the causal bound, every dim rotated),
+    each of which the one-layer fan-in set must reject at every length;
+29. stablelm-1.6b's main path: event-driven serving in bf16, counted as in
+    phase 5;
+30. float32 serving of stablelm-1.6b against the sequential baseline;
+31. where stablelm-1.6b's serving time goes, as in phase 7.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -290,6 +304,22 @@ DECODE_S = (100, 256, 384, 511)
 # weights left unnormalised, and the capacity ignored (C = T: nothing
 # dropped); the gate must reject both and pass the fault-free control
 MOE_FAULTS = ("unnormalised_weights", "no_capacity")
+
+STABLELM = "stablelm-1.6b"
+# the serving path's flash shapes on stablelm-1.6b's 24 global layers: B=1,
+# 32 heads, 32 KV heads (MHA: GQA group 1), head dim 64, no window, no
+# softcap, bf16
+STABLELM_FA_SHAPE = dict(H=32, KH=32, D=64, window=None)
+# faults planted in phase 28's plain path (stablelm-1.6b), chosen for MHA,
+# where gqa_mod's h % KH is the right head: query head h reading KV head
+# (h + 1) % KH, each query also seeing the key one position after it, and
+# the rotary turning all 64 dims of a head, not the leading 16
+# (rope_fraction 0.25).  The control is gemma2-2b's, K/V expanded to the
+# query heads by the right map (the identity at group 1).  The control must
+# pass every gated float32 run; each fault must fail the gate at every
+# length of the "layer_fan_in" set, and is reported at the port's init
+STABLELM_CONTROL = GEMMA2_CONTROL
+STABLELM_FAULTS = ("kv_head_shift", "causal_shift", "full_rotary")
 
 RG_SOURCE = "src/repro_torch/csrc/rglru_fwd.cu"
 RG_REPLACES = "src/repro/kernels/rglru/kernel.py:59"
@@ -564,6 +594,8 @@ def phase_kernels(out):
                    **GRANITE_FA_SHAPE) for S in PATH_S]
     cases += [dict(S=S, window=w, dtype="bfloat16", B=1, path=GEMMA2,
                    **GEMMA2_FA_SHAPE) for S in PATH_S for w in GEMMA2_WINDOWS]
+    cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=STABLELM,
+                   **STABLELM_FA_SHAPE) for S in PATH_S]
     # the training forward's calls (phase 19): each rank's 2 x 512 tokens
     cases += [dict(S=TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
                    softcap=None, dtype="bfloat16",
@@ -753,8 +785,9 @@ def _scan_fault(module, faulty):
 # for that weight set, where it names some), or "some_set", fail in at
 # least one gated run.  "decode": a run over every PREFILL_S also runs one
 # 4-slot decode step (``_decode_check``).  "precap": a float32 run reads
-# the pre-cap attention logits of the first and the last layer at the
-# longest length.
+# the attention logits of the first and the last layer at the longest
+# length, before the cap (or before the softmax, where there is none).
+# "parity": the weight set that phase_parity serves ("seeded" if absent).
 MODEL_CHECKS = {
     GEMMA: dict(runs=(("float32", "seeded", PREFILL_S),
                       ("bfloat16", "seeded", PREFILL_S))),
@@ -774,7 +807,7 @@ MODEL_CHECKS = {
                  control=RG_CONTROL, faults=RG_LOGIT_FAULTS,
                  planted_at=lambda f, S, cfg: (f != "reset_128"
                                                or S > RG_PIECE),
-                 rule="every_s"),
+                 rule="every_s", parity="layer_fan_in"),
     # float32 at granite's init runs at the longest S only: float32
     # rounding alone decides its tokens (see _contraction_fan_in), so its
     # floor is far above the gate and the run is reported
@@ -789,6 +822,14 @@ MODEL_CHECKS = {
                  plant=lambda f: attention_fault(f),
                  control=GEMMA2_CONTROL, faults=GEMMA2_FAULTS,
                  rule="some_set"),
+    STABLELM: dict(runs=(("bfloat16", "seeded", PREFILL_S),
+                         ("float32", "seeded", PREFILL_S),
+                         ("float32", "layer_fan_in", PREFILL_S)),
+                   f64_floor=True, precap=True,
+                   plant=lambda f: attention_fault(f),
+                   control=STABLELM_CONTROL, faults=STABLELM_FAULTS,
+                   rule="every_s",
+                   gates={"seeded": (), "layer_fan_in": STABLELM_FAULTS}),
 }
 
 
@@ -884,7 +925,9 @@ def phase_model(out, arch):
                 last = len(rmodel.cfg.layer_kinds()) - 1
                 with _precap_logits((0, last)) as precap:
                     _prefill(rmodel, toks)
-                row["precap_attention_logits"] = {
+                key = ("precap" if rmodel.cfg.attn_softcap is not None
+                       else "presoftmax")
+                row[f"{key}_attention_logits"] = {
                     f"layer {n}": st for n, st in precap.items()}
             rows.append(row)
             if not torch.isfinite(lk).all():
@@ -923,17 +966,21 @@ def phase_model(out, arch):
                 kmodel, rmodel, weights, g, gated)
         del kmodel, rmodel, cmodel
         _free()
-    if checks.get("rule") == "some_set":
-        # the gated weight sets whose gate rejects each planted fault
+    if "faults" in checks:
+        # the float32 weight sets that were gated, and of them those whose
+        # gate rejects each planted fault
+        gated_sets = sorted({r["weights"] for r in res.values()
+                             if r["gated"] and r["dtype"] == "float32"})
         by_fault = {f: sorted({r["weights"] for r in res.values()
                                if r["gated"] and f in r["planted_faults"]
                                and r["planted_faults"][f]["rejected"]})
                     for f in checks["faults"]}
-        log("model " + json.dumps({"arch": arch,
+        log("model " + json.dumps({"arch": arch, "gated_sets": gated_sets,
                                    "faults_rejected_by": by_fault}))
+        res["gated_sets"] = gated_sets
         res["faults_rejected_by"] = by_fault
         missed = [f for f, sets in by_fault.items() if not sets]
-        if missed:
+        if checks["rule"] == "some_set" and missed:
             raise AssertionError(f"no gated float32 weight set rejects the "
                                  f"planted faults {missed}")
     out[f"model_{arch}"] = res
@@ -994,15 +1041,20 @@ def _f64_floor(rmodel, toks, lr, choices):
 
 @contextlib.contextmanager
 def attention_fault(fault):
-    """Plant one of GEMMA2_FAULTS, or GEMMA2_CONTROL, in the plain
-    attention path while open (None: nothing): ``no_attn_softcap`` calls
-    the plain attention without its cap, ``no_final_softcap`` leaves the
-    logits uncapped, ``gqa_mod`` gives query head h KV head h % KH, and
-    ``kv_expanded`` KV head h // (H / KH), the right one, by the same
-    expansion of K and V to H heads."""
+    """Plant one of GEMMA2_FAULTS or STABLELM_FAULTS, or the control, in
+    the plain attention path while open (None: nothing):
+    ``no_attn_softcap`` calls the plain attention without its cap,
+    ``no_final_softcap`` leaves the logits uncapped, ``gqa_mod`` gives
+    query head h KV head h % KH, ``kv_head_shift`` the KV head after its
+    own, ``causal_shift`` lets each query see the key one position after
+    it, ``full_rotary`` rotates every dim of a head whatever the config's
+    ``rope_fraction``, and ``kv_expanded`` gives query head h KV head
+    h // (H / KH), the right one, by the same expansion of K and V to H
+    heads."""
     import torch
     from repro_torch.models import attention, lm
     plain, capped = attention.ref_attention, lm.softcap
+    rotary = attention.rotary
 
     def expanded(head_map):
         def call(q, k, v, **kw):
@@ -1017,6 +1069,15 @@ def attention_fault(fault):
         lm.softcap = lambda x, cap: x
     elif fault == "gqa_mod":
         attention.ref_attention = expanded(lambda h, H, KH: h % KH)
+    elif fault == "kv_head_shift":
+        attention.ref_attention = expanded(
+            lambda h, H, KH: (h // (H // KH) + 1) % KH)
+    elif fault == "causal_shift":
+        attention.ref_attention = lambda q, k, v, *, q_pos, **kw: plain(
+            q, k, v, q_pos=q_pos + 1, **kw)
+    elif fault == "full_rotary":
+        attention.rotary = lambda x, positions, *, theta, fraction: rotary(
+            x, positions, theta=theta, fraction=1.0)
     elif fault == GEMMA2_CONTROL:
         attention.ref_attention = expanded(lambda h, H, KH: h // (H // KH))
     elif fault is not None:
@@ -1025,15 +1086,18 @@ def attention_fault(fault):
         yield
     finally:
         attention.ref_attention, lm.softcap = plain, capped
+        attention.rotary = rotary
 
 
 @contextlib.contextmanager
 def _precap_logits(calls):
-    """Record, while open, the pre-cap attention logits of the plain
+    """Record, while open, the scaled attention logits of the plain
     attention calls numbered in ``calls`` (0 is the first; a prefill makes
-    one a layer, in layer order), over the (query, key) pairs its masks
-    keep: their rms, largest magnitude and the share past SOFTCAP_BEND,
-    into the dict it yields, keyed by call number."""
+    one a layer, in layer order), before the softcap where the call has
+    one, else before the softmax, over the (query, key) pairs its masks
+    keep: their rms, largest magnitude and, for a capped call only, the
+    share past SOFTCAP_BEND, into the dict it yields, keyed by call
+    number."""
     import torch
     from repro_torch.models import attention
     plain, stats, seen = attention.ref_attention, {}, [0]
@@ -1054,9 +1118,10 @@ def _precap_logits(calls):
                                < window)
             x = x[keep[:, None, None].expand_as(x)]
             stats[n] = {"rms": float(x.square().mean().sqrt()),
-                        "max_abs": float(x.abs().max()),
-                        "share_past_bend": float(
-                            (x.abs() > SOFTCAP_BEND).float().mean())}
+                        "max_abs": float(x.abs().max())}
+            if cap is not None:
+                stats[n]["share_past_bend"] = float(
+                    (x.abs() > SOFTCAP_BEND).float().mean())
         return plain(q, k, v, scale=scale, q_pos=q_pos, k_pos=k_pos,
                      window=window, cap=cap, causal=causal)
     attention.ref_attention = recorded
@@ -1440,14 +1505,13 @@ def _top2_gap(cfg, prompt, tokens, step, params=None):
     return float(top[0] - top[1])
 
 
-def _rescaled_numpy(arch, rescale):
-    """The port's float32 init of ``arch`` rescaled in place by
-    ``rescale`` (``_layer_fan_in``, ``_contraction_fan_in``), as host
-    numpy arrays: a parameter tree the serving entry points take as
-    ``params``."""
+def _rescaled_numpy(arch, weights):
+    """The port's float32 init of ``arch`` rescaled in place as the weight
+    set ``weights`` draws it (``_weight_set``), as host numpy arrays: a
+    parameter tree the serving entry points take as ``params``."""
     from repro_torch import bridge
     model = _full_model(arch, "float32", "kernel")
-    rescale(model)
+    _weight_set(weights, model)
     tree = bridge.params_to_numpy(model)
     del model
     _free()
@@ -1455,19 +1519,22 @@ def _rescaled_numpy(arch, rescale):
 
 
 def phase_parity(out, arch):
-    """float32 served tokens against the sequential baseline's.  For
-    recurrentgemma-9b both serve the ``layer_fan_in`` weights (passed as
-    ``params``): at the port's init float32 rounding alone moves its logits
-    by O(1), past their top-2 gaps (see RG_LOGIT_FAULTS), so batched and
-    sequential serving, whose products round differently, part early.
-    gemma2-2b serves the port's init, where phase 24 gates float32."""
+    """float32 served tokens against the sequential baseline's, both
+    serving the weight set that MODEL_CHECKS names as the arch's "parity"
+    (passed as ``params``), else the port's init.  recurrentgemma-9b
+    serves ``layer_fan_in``: at the port's init float32 rounding alone
+    moves its logits by O(1), past their top-2 gaps (see RG_LOGIT_FAULTS),
+    so batched and sequential serving, whose products round differently,
+    part early.  gemma2-2b and stablelm-1.6b serve the port's init, where
+    phases 24 and 28 gate float32."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
     cfg = ARCHS[arch].cfg.replace(dtype="float32")
-    params = _rescaled_numpy(arch, _layer_fan_in) if arch == RGEMMA \
-        else None
+    weights = MODEL_CHECKS[arch].get("parity", "seeded")
+    params = (_rescaled_numpy(arch, weights) if weights != "seeded"
+              else None)
     fa_before = _fa_variants()
     res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                     max_len=MAX_LEN, load=load, device="cuda",
@@ -1495,8 +1562,7 @@ def phase_parity(out, arch):
         diffs.append({"id": rid, "step": step, "top2_gap": gap})
         _free()
     log("parity " + json.dumps({"arch": arch, "requests": len(want),
-                                "weights": ("layer_fan_in" if params
-                                            else "seeded"),
+                                "weights": weights,
                                 "identical": len(want) - len(diffs),
                                 "differing": diffs}))
     bad = [d for d in diffs if not d["top2_gap"] < NEAR_TIE]
@@ -1811,7 +1877,7 @@ def phase_replay(out):
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
     cfg = ARCHS[GRANITE].cfg.replace(dtype="float32")
-    params = _rescaled_numpy(GRANITE, _contraction_fan_in)
+    params = _rescaled_numpy(GRANITE, "contraction_fan_in")
     fa_before = _fa_variants()
     with record_engine_calls() as calls:
         res = run_serve(arch=GRANITE, reduced=False, clients=2, slots=4,
@@ -2638,6 +2704,11 @@ PHASES = {
     25: ("gemma2-2b serve (main path)", lambda out: phase_serve(out, GEMMA2)),
     26: ("gemma2-2b parity", lambda out: phase_parity(out, GEMMA2)),
     27: ("gemma2-2b profile", lambda out: phase_profile(out, GEMMA2)),
+    28: ("stablelm-1.6b model", lambda out: phase_model(out, STABLELM)),
+    29: ("stablelm-1.6b serve (main path)",
+         lambda out: phase_serve(out, STABLELM)),
+    30: ("stablelm-1.6b parity", lambda out: phase_parity(out, STABLELM)),
+    31: ("stablelm-1.6b profile", lambda out: phase_profile(out, STABLELM)),
 }
 
 
@@ -2700,10 +2771,11 @@ def kernels_line(out):
         if name == "flash_attention_fwd":
             # the main paths' launches by variant
             by_variant = out.get("flash_main_path_by_variant", {})
-            # granite-moe-1b-a400m's shape (H=16, KH=8, D=64) and gemma2-2b's
-            # (H=8, KH=4, D=256, softcap 50), no window, at S=511, timed as
-            # the entry's
-            for key, arch in (("granite", GRANITE), ("gemma2", GEMMA2)):
+            # granite-moe-1b-a400m's shape (H=16, KH=8, D=64), gemma2-2b's
+            # (H=8, KH=4, D=256, softcap 50) and stablelm-1.6b's (H=KH=32,
+            # D=64), no window, at S=511, timed as the entry's
+            for key, arch in (("granite", GRANITE), ("gemma2", GEMMA2),
+                              ("stablelm", STABLELM)):
                 g = next((r for r in rows if r["path"] == arch
                           and r["S"] == TIMED[0] and r["window"] is None),
                          None)

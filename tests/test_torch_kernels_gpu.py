@@ -82,6 +82,9 @@ MMA_CASES = ([(D, S, w, None) for D in tfa.HEAD_DIMS for S in MMA_S
 # gemma2-2b's prefill shape: B=1, 8 heads, 4 KV heads (GQA group 2), head
 # dim 256, softcap 50; window 4096 on its local layers, none on its global
 GEMMA2_CASES = [(S, w) for S in (1, 65, 100, 511) for w in (4096, None)]
+# stablelm-1.6b's prefill shape: B=1, 32 heads, 32 KV heads (MHA: GQA
+# group 1), head dim 64, no window, no softcap
+STABLELM_CASES = (1, 65, 100, 511)
 
 
 @pytest.mark.gpu
@@ -96,6 +99,13 @@ def test_flash_variants_match_plain_on_bf16(cuda, D, S, window, softcap):
 def test_flash_variants_match_plain_at_gemma2_shape(cuda, S, window):
     _variants_match_plain(cuda, 1, S, 8, 4, 256, window, 50.0,
                           seed=S * 13 + 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", STABLELM_CASES)
+def test_flash_variants_match_plain_at_stablelm_shape(cuda, S):
+    _variants_match_plain(cuda, 1, S, 32, 32, 64, None, None,
+                          seed=S * 17 + 64)
 
 
 def _variants_match_plain(cuda, B, S, H, KH, D, window, softcap, seed):

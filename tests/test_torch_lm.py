@@ -8,7 +8,10 @@ Reduced granite-moe-1b-a400m (E=8, k=2) is a stacked pair of MoE layers:
 at capacity 8 (no drops), at capacity 1.25 (its 4-row decode batch drops
 assignments) and with a leading ``dense_big`` layer before the pair.
 Reduced gemma2-2b at 4 layers is the unit (local, attn) stacked twice,
-with attention softcap 50, final softcap 30 and window 64.
+with attention softcap 50, final softcap 30 and window 64.  Reduced
+stablelm-1.6b at 4 layers is one stacked segment of 4 MHA layers (4 heads,
+4 KV heads of 32, 8 of them rotated), layernorm with a bias, an untied
+``lm_head``.
 """
 import dataclasses
 import os
@@ -48,10 +51,17 @@ GRANITE = "granite-moe-1b-a400m"
 # /``wv`` drawn at 2 reps, not d_model 128, put the pre-cap attention
 # logits at an rms of ~65 (the softcap of 50 bends) and the K/V caches at
 # ~36, moved by up to 3.7e-4, and its embedding grad (largest 1.96) by
-# 8.2e-5 (JAX's float32 by 1.7e-4).  Logits and losses stay within TOL.
-GRADS, CACHES = ("grads",), ("grads", "caches")
+# 8.2e-5 (JAX's float32 by 1.7e-4).  stablelm-1.6b: ``wq``/``wk`` drawn
+# at 4 reps, not d_model 128, put the attention logits at an rms of ~30
+# with no cap and no qk-norm, so the softmax is near one-hot and its
+# gradient turns on float32 rounding: over six token draws the port's
+# float32 grads sit up to 2.5x that scaled limit from its own float64 run
+# (embed, ln1), JAX's float32 up to 3.3x, the two packages up to 4.4x
+# apart; its grads are held at 10x the scaled limit.  Logits and losses
+# stay within TOL.
+GRADS, CACHES = {"grads": 1}, {"grads": 1, "caches": 1}
 # id: (arch, layers, MoE overrides, decode batch, stacked segment, the
-# leaves whose limit scales)
+# leaves whose limit scales, each with the factor on its scaled limit)
 MODELS = {
     "L6": ("gemma3-1b", 6, {}, 2, False, ()),
     "L12": ("gemma3-1b", 12, {}, 2, True, ()),
@@ -60,16 +70,18 @@ MODELS = {
                         GRADS),
     "granite-dense1": (GRANITE, 3, {"first_dense": 1}, 4, False, GRADS),
     "gemma2": ("gemma2-2b", 4, {}, 2, True, CACHES),
+    "stablelm": ("stablelm-1.6b", 4, {}, 2, True, {"grads": 10}),
 }
 
 
 def _atol(spec, leaves, leaf):
     """The absolute limit for ``leaf``, one of ``leaves`` ("grads" or
     "caches"): TOL, scaled by the leaf's largest magnitude (at least 1)
-    where the case's spec says so."""
+    and by the case's factor where the case's spec says so."""
     if leaves not in spec[5]:
         return TOL
-    return TOL * max(1.0, float(np.abs(np.asarray(leaf)).max()))
+    return TOL * spec[5][leaves] * max(1.0,
+                                       float(np.abs(np.asarray(leaf)).max()))
 
 
 def _models(name):
@@ -266,15 +278,14 @@ def test_window_masks_keys_past_its_length(models):
                                    atol=TOL, err_msg=f"position {p}")
 
 
-@pytest.mark.parametrize("models", ["gemma2"], indirect=True)
-def test_gemma2_planted_faults_move_the_plain_path(models):
-    """The faults that ``chip_smoke`` plants in gemma2-2b's plain attention
-    path (``attention_fault``) each move its last logits past the chip
-    check's float32 gate, while its control (K/V expanded to the query
-    heads by the right map) and the kernel route stay within TOL of the
-    sound plain path; ``_precap_logits`` reads the logits that the plain
-    attention then softcaps, over the pairs its masks keep."""
-    _, _, tm, _ = models
+def _planted_faults(tm, control, faults):
+    """The last logits of ``tm``'s plain path (a 40-token prefill) with
+    each of ``control`` and ``faults`` planted by
+    ``chip_smoke.attention_fault``: {fault: max distance from the sound
+    plain path}, after holding the kernel route to the sound plain path
+    within TOL; and the plain path's attention logits of its first and
+    last layer (``chip_smoke._precap_logits``), which must leave the
+    logits bit-equal."""
     plain = build_model(tm.cfg.replace(attn_impl="ref")).set_params(
         tm.params.to_dict())
     rng = np.random.default_rng(4)
@@ -287,18 +298,118 @@ def test_gemma2_planted_faults_move_the_plain_path(models):
     want = last(plain)
     np.testing.assert_allclose(last(tm).numpy(), want.numpy(), rtol=TOL,
                                atol=TOL)
-    for fault in (chip_smoke.GEMMA2_CONTROL,) + chip_smoke.GEMMA2_FAULTS:
+    diffs = {}
+    for fault in (control,) + faults:
         with chip_smoke.attention_fault(fault):
-            diff = float((last(plain) - want).abs().max())
+            diffs[fault] = float((last(plain) - want).abs().max())
+    layers = (0, tm.cfg.n_layers - 1)
+    with chip_smoke._precap_logits(layers) as precap:
+        torch.testing.assert_close(last(plain), want, rtol=0, atol=0)
+    assert sorted(precap) == list(layers)
+    return diffs, precap
+
+
+@pytest.mark.parametrize("models", ["gemma2"], indirect=True)
+def test_gemma2_planted_faults_move_the_plain_path(models):
+    """The faults that ``chip_smoke`` plants in gemma2-2b's plain attention
+    path (``attention_fault``) each move its last logits past the chip
+    check's float32 gate, while its control (K/V expanded to the query
+    heads by the right map) and the kernel route stay within TOL of the
+    sound plain path; ``_precap_logits`` reads the logits that the plain
+    attention then softcaps, over the pairs its masks keep."""
+    _, _, tm, _ = models
+    diffs, precap = _planted_faults(tm, chip_smoke.GEMMA2_CONTROL,
+                                    chip_smoke.GEMMA2_FAULTS)
+    for fault, diff in diffs.items():
         assert (diff > chip_smoke.LOGIT_TOL) == (
             fault != chip_smoke.GEMMA2_CONTROL), (fault, diff)
-    with chip_smoke._precap_logits((0, 3)) as precap:
-        torch.testing.assert_close(last(plain), want, rtol=0, atol=0)
-    assert sorted(precap) == [0, 3]
     # the reference's init drives the pre-cap logits past the bend
     for st in precap.values():
         assert st["max_abs"] >= st["rms"] > chip_smoke.SOFTCAP_BEND
         assert 0 < st["share_past_bend"] < 1
+
+
+@pytest.mark.parametrize("models", ["stablelm"], indirect=True)
+def test_stablelm_planted_faults_move_the_plain_path(models):
+    """The faults that ``chip_smoke`` plants in stablelm-1.6b's plain path
+    for MHA (the next KV head, one key past the causal bound, the rotary
+    on every dim) each move its last logits past the chip check's float32
+    gate, while its control (K/V expanded by the identity map) stays
+    within TOL; its attention has no cap, so ``_precap_logits`` reads its
+    pre-softmax logits and reports no share past a bend."""
+    _, _, tm, _ = models
+    assert tm.cfg.n_heads == tm.cfg.n_kv_heads
+    assert int(tm.cfg.hd * tm.cfg.rope_fraction) < tm.cfg.hd
+    diffs, precap = _planted_faults(tm, chip_smoke.STABLELM_CONTROL,
+                                    chip_smoke.STABLELM_FAULTS)
+    assert diffs[chip_smoke.STABLELM_CONTROL] <= TOL, diffs
+    for fault in chip_smoke.STABLELM_FAULTS:
+        assert diffs[fault] > chip_smoke.LOGIT_TOL, (fault, diffs)
+    # the reference's init puts the softmax near one-hot
+    for st in precap.values():
+        assert "share_past_bend" not in st
+        assert st["max_abs"] >= st["rms"] > 10
+
+
+@pytest.mark.parametrize("models", ["stablelm"], indirect=True)
+def test_redrawn_norms_match(models):
+    """Every layernorm's ``w`` redrawn as 1 + 0.1 N and its ``b`` as 0.1 N
+    (numpy seeded), the same arrays written into both packages' trees:
+    the loss, a prefill's logits and greedy decode steps' logits match the
+    reference's within TOL, and the redraw moves the logits.  At the
+    reference's init (``w`` = 1, ``b`` = 0) a port that dropped the bias or
+    swapped ``w`` and ``b`` would pass every other test."""
+    jm, jparams, tm, _ = models
+    rng = np.random.default_rng(5)
+    norms = []
+
+    def redraw(t, path):
+        if set(t) == {"w", "b"}:                 # a layernorm
+            norms.append(path)
+            return {"w": 1 + 0.1 * rng.standard_normal(t["w"].shape),
+                    "b": 0.1 * rng.standard_normal(t["b"].shape)}
+        return {k: redraw(v, path + (k,)) if isinstance(v, dict) else v
+                for k, v in t.items()}
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        redraw(jax.tree.map(np.asarray, jparams), ()))
+    assert sorted(norms) == [("final_norm",), ("seg0", "u0", "ln1"),
+                             ("seg0", "u0", "ln2")]
+    jp = jax.tree.map(jnp.asarray, tree)
+    rm = build_model(tm.cfg)
+    bridge.params_from_jax_numpy(tree, rm, "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, tm.cfg.vocab, size=(2, 24)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    jl, _ = jax.jit(jm.loss)(jp, {"tokens": jnp.asarray(toks),
+                                  "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        tl, _ = rm.loss({"tokens": torch.from_numpy(toks).long(),
+                         "labels": torch.from_numpy(labels).long()})
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL, atol=TOL)
+    B, S, L = 2, 20, 64
+    jcache = jm.init_cache(B, L)
+    jlog, jcache = jax.jit(jm.prefill)(jp, jnp.asarray(toks[:, :S]), jcache)
+    with torch.inference_mode():
+        tlog, tcache = rm.prefill(torch.from_numpy(toks[:, :S]).long(),
+                                  rm.init_cache(B, L))
+        slog, _ = tm.prefill(torch.from_numpy(toks[:, :S]).long(),
+                             tm.init_cache(B, L))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=TOL,
+                               atol=TOL)
+    assert float((tlog - slog).abs().max()) > 100 * TOL
+    jdecode = jax.jit(jm.decode_step)
+    for i in range(4):
+        tok = np.array(jnp.argmax(jlog[:, -1], -1)[:, None], np.int32)
+        np.testing.assert_array_equal(
+            torch.argmax(tlog[:, -1], -1)[:, None].numpy(), tok)
+        pos = np.full((B, 1), S + i, np.int32)
+        jlog, jcache = jdecode(jp, jcache, jnp.asarray(tok),
+                               jnp.asarray(pos))
+        with torch.inference_mode():
+            tlog, tcache = rm.decode_step(tcache, torch.from_numpy(tok).long(),
+                                          torch.from_numpy(pos))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=TOL,
+                                   atol=TOL, err_msg=f"step {i}")
 
 
 def test_prefill_refuses_used_cache(models):

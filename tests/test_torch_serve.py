@@ -45,6 +45,7 @@ pytestmark = pytest.mark.timeout(600)
 ARCH = "gemma3-1b"
 GRANITE = "granite-moe-1b-a400m"
 GEMMA2 = "gemma2-2b"
+STABLELM = "stablelm-1.6b"
 MAX_LEN = 48
 
 
@@ -78,6 +79,17 @@ def gemma2():
     jcfg = jreduce(JARCHS[GEMMA2].cfg)
     eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
     return ((reduce_cfg(ARCHS[GEMMA2].cfg), jcfg),
+            jax.tree.map(np.asarray, eng.params))
+
+
+@pytest.fixture(scope="module")
+def stablelm():
+    """Reduced stablelm-1.6b (two MHA layers of 4 heads, layernorm with a
+    bias, 8 of 32 dims rotated, an untied ``lm_head``): (port cfg,
+    reference cfg) and the reference engine's weights."""
+    jcfg = jreduce(JARCHS[STABLELM].cfg)
+    eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
+    return ((reduce_cfg(ARCHS[STABLELM].cfg), jcfg),
             jax.tree.map(np.asarray, eng.params))
 
 
@@ -176,6 +188,17 @@ def test_run_serve_gemma2_matches_reference_sequential(gemma2):
     cfgs, params = gemma2
     assert cfgs[0].n_layers == 2
     _serve_matches_reference(cfgs, params, "inproc", None, arch=GEMMA2)
+
+
+def test_run_serve_stablelm_matches_reference_sequential(stablelm):
+    """Reduced stablelm-1.6b served in-proc (MHA with partial rotary
+    through the flash route in every prefill, layernorm, untied logits)
+    answers every request with the reference's sequential tokens."""
+    cfgs, params = stablelm
+    assert cfgs[0].n_layers == 2
+    assert cfgs[0].n_heads == cfgs[0].n_kv_heads == 4
+    assert "lm_head" in params
+    _serve_matches_reference(cfgs, params, "inproc", None, arch=STABLELM)
 
 
 def test_recorded_calls_rebuild_tokens_and_replay(granite):
