@@ -8,14 +8,16 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Seven main paths are driven, each at full width and
+raise on failure.  Eight main paths are driven, each at full width and
 depth: serving gemma3-1b (flash attention), mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
 layers), granite-moe-1b-a400m (flash attention at 16 heads, 8 KV heads of
 64, and the MoE layer), gemma2-2b (flash attention at 8 heads, 4 KV heads
-of 256 with softcap 50) and stablelm-1.6b (flash attention at 32 heads
-and 32 KV heads of 64, layernorm, partial rotary), and training gemma3-1b
-(flash attention in every forward):
+of 256 with softcap 50), stablelm-1.6b (flash attention at 32 heads and 32
+KV heads of 64, layernorm, partial rotary) and starcoder2-15b (flash
+attention at 48 heads, 4 KV heads of 128, window 4096 in every layer;
+biases, the plain GELU MLP), and training gemma3-1b (flash attention in
+every forward):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -26,8 +28,9 @@ and 32 KV heads of 64, layernorm, partial rotary), and training gemma3-1b
 3. the flash kernels against their plain PyTorch version on the card, on
    the reference's test cases, ragged tails and the serving paths' shapes
    (gemma3-1b's, recurrentgemma-9b's, the training forward's,
-   granite-moe-1b-a400m's, gemma2-2b's and stablelm-1.6b's), each row
-   with the variant it
+   granite-moe-1b-a400m's, gemma2-2b's, stablelm-1.6b's and
+   starcoder2-15b's, the last also at 4,608 tokens, where its window of
+   4096 masks keys), each row with the variant it
    launched (the bf16 tensor-core kernel for bf16, the SIMT kernel for
    float32), with CUDA-event and device times of the kernel, of the SIMT
    kernel on the same inputs (held to the same gate), the plain version
@@ -148,7 +151,18 @@ and 32 KV heads of 64, layernorm, partial rotary), and training gemma3-1b
 29. stablelm-1.6b's main path: event-driven serving in bf16, counted as in
     phase 5;
 30. float32 serving of stablelm-1.6b against the sequential baseline;
-31. where stablelm-1.6b's serving time goes, as in phase 7.
+31. where stablelm-1.6b's serving time goes, as in phase 7;
+32. starcoder2-15b: the peak memory of a float32 init of the full model
+    beside its tree's bytes; prefill through the kernel against prefill
+    through plain attention as in phase 28 (the faults: the wrong KV head
+    by h % KH, the next KV head, one key past the causal bound); then a
+    cache-free forward of 4,608 tokens at full width and 4 layers, past
+    the window, whose float32 gate must reject the window dropped from the
+    plain attention;
+33. starcoder2-15b's main path: event-driven serving in bf16, counted as
+    in phase 5;
+34. float32 serving of starcoder2-15b against the sequential baseline;
+35. where starcoder2-15b's serving time goes, as in phase 7.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -320,6 +334,32 @@ STABLELM_FA_SHAPE = dict(H=32, KH=32, D=64, window=None)
 # length of the "layer_fan_in" set, and is reported at the port's init
 STABLELM_CONTROL = GEMMA2_CONTROL
 STABLELM_FAULTS = ("kv_head_shift", "causal_shift", "full_rotary")
+
+STARCODER2 = "starcoder2-15b"
+# the serving path's flash shapes on starcoder2-15b's 40 local layers: B=1,
+# 48 heads, 4 KV heads (GQA group 12), head dim 128, window 4096, no
+# softcap, bf16.  No served prompt reaches the window (MAX_LEN is 512), so
+# phase 3 adds one row at WINDOW_S tokens, where the window masks keys for
+# the last WINDOW_S - 4096 queries and the kernel skips their dead tiles
+STARCODER2_FA_SHAPE = dict(H=48, KH=4, D=128, window=4096)
+WINDOW_S = 4608
+# faults planted in phase 32's plain path (starcoder2-15b): query head h
+# reading KV head h % KH in place of h // 12, the next KV head, and each
+# query also seeing the key one position after it.  The control is
+# gemma2-2b's.  The control must pass every gated float32 run; each fault
+# must fail the gate at every length of the "layer_fan_in" set, and is
+# reported at the port's init
+STARCODER2_CONTROL = GEMMA2_CONTROL
+STARCODER2_FAULTS = ("gqa_mod", "kv_head_shift", "causal_shift")
+# phase 32's window check (``_window_check``): the model at full width and
+# WINDOW_LAYERS layers, one cache-free forward of WINDOW_S tokens through
+# the kernel against the same through plain attention, compared over the
+# logits of the last WINDOW_TAIL positions (those whose window masks keys).
+# The float32 gate must pass the control and reject the window dropped from
+# the plain attention (WINDOW_FAULT)
+WINDOW_LAYERS = 4
+WINDOW_TAIL = WINDOW_S - STARCODER2_FA_SHAPE["window"]
+WINDOW_FAULT = "no_window"
 
 RG_SOURCE = "src/repro_torch/csrc/rglru_fwd.cu"
 RG_REPLACES = "src/repro/kernels/rglru/kernel.py:59"
@@ -596,6 +636,9 @@ def phase_kernels(out):
                    **GEMMA2_FA_SHAPE) for S in PATH_S for w in GEMMA2_WINDOWS]
     cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=STABLELM,
                    **STABLELM_FA_SHAPE) for S in PATH_S]
+    cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1,
+                   path=STARCODER2, **STARCODER2_FA_SHAPE)
+              for S in PATH_S + (WINDOW_S,)]
     # the training forward's calls (phase 19): each rank's 2 x 512 tokens
     cases += [dict(S=TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
                    softcap=None, dtype="bfloat16",
@@ -731,12 +774,15 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _full_model(arch, dtype, attn_impl, params=None, chunk=None):
+def _full_model(arch, dtype, attn_impl, params=None, chunk=None,
+                n_layers=None):
     import dataclasses
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     cfg = ARCHS[arch].cfg.replace(dtype=dtype, attn_impl=attn_impl)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     if chunk is not None:
         cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
     model = build_model(cfg)
@@ -788,6 +834,8 @@ def _scan_fault(module, faulty):
 # the attention logits of the first and the last layer at the longest
 # length, before the cap (or before the softmax, where there is none).
 # "parity": the weight set that phase_parity serves ("seeded" if absent).
+# "init_peak": first measure a float32 init's peak memory (``_init_peak``).
+# "window": last run the cache-free check past the window (``_window_check``).
 MODEL_CHECKS = {
     GEMMA: dict(runs=(("float32", "seeded", PREFILL_S),
                       ("bfloat16", "seeded", PREFILL_S))),
@@ -830,6 +878,16 @@ MODEL_CHECKS = {
                    control=STABLELM_CONTROL, faults=STABLELM_FAULTS,
                    rule="every_s",
                    gates={"seeded": (), "layer_fan_in": STABLELM_FAULTS}),
+    STARCODER2: dict(runs=(("bfloat16", "seeded", PREFILL_S),
+                           ("float32", "seeded", PREFILL_S),
+                           ("float32", "layer_fan_in", PREFILL_S)),
+                     f64_floor=True, precap=True, init_peak=True,
+                     window=True, plant=lambda f: attention_fault(f),
+                     control=STARCODER2_CONTROL, faults=STARCODER2_FAULTS,
+                     rule="every_s",
+                     gates={"seeded": (),
+                            "layer_fan_in": STARCODER2_FAULTS},
+                     parity="layer_fan_in"),
 }
 
 
@@ -866,6 +924,7 @@ def phase_model(out, arch):
     checks = MODEL_CHECKS[arch]
     control, gates = checks.get("control"), checks.get("gates")
     res = {}
+    init = _init_peak(arch) if checks.get("init_peak") else None
     for dtype, weights, lengths in checks["runs"]:
         f32 = dtype == "float32"
         kmodel = _full_model(arch, dtype, "kernel")
@@ -983,7 +1042,123 @@ def phase_model(out, arch):
         if checks["rule"] == "some_set" and missed:
             raise AssertionError(f"no gated float32 weight set rejects the "
                                  f"planted faults {missed}")
+    if init is not None:
+        res["float32_init_memory"] = init
+    if checks.get("window"):
+        res["window"] = _window_check(arch, control)
     out[f"model_{arch}"] = res
+
+
+def _init_peak(arch):
+    """The peak memory that a float32 init of the full ``arch`` allocates
+    on the card, beside its tree's bytes and its largest leaf's: the init
+    draws each leaf in float32 and scales it in place, so the peak may not
+    pass the tree plus its largest leaf.  Run first in a phase, on a card
+    whose peak was reset and memory freed."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = _full_model(arch, "float32", "kernel")
+    torch.cuda.synchronize()
+    leaves = [t.numel() * t.element_size()
+              for t in tree_leaves(model.params.to_dict())]
+    row = {"arch": arch, "peak_bytes": torch.cuda.max_memory_allocated()
+           - base, "tree_bytes": sum(leaves), "largest_leaf_bytes":
+           max(leaves), "leaves": len(leaves)}
+    row["limit_bytes"] = row["tree_bytes"] + row["largest_leaf_bytes"]
+    log("model init " + json.dumps(row))
+    del model
+    _free()
+    if row["peak_bytes"] > row["limit_bytes"]:
+        raise AssertionError(f"a float32 init peaks past its tree plus its "
+                             f"largest leaf: {row}")
+    return row
+
+
+def tail_logits(model, tokens, tail):
+    """One cache-free, teacher-forced forward of ``tokens`` (the training
+    path's attention: causal, windowed, no cache) and the float32 logits of
+    its last ``tail`` positions."""
+    import torch
+    with torch.inference_mode():
+        h, _, _ = model.forward(model.embed(tokens),
+                                positions=model._positions(tokens))
+        return model.logits(h[:, -tail:]).float()
+
+
+def _window_check(arch, control):
+    """The only model-level check that applies a window on the card: no
+    served prefill reaches one (MAX_LEN is under every window), so the
+    model at full width and WINDOW_LAYERS layers (``layer_fan_in`` weights,
+    one tree shared by both paths) runs one cache-free forward of WINDOW_S
+    tokens through the kernel and through plain attention (``tail_logits``),
+    and the logits of the last WINDOW_TAIL positions, whose window masks
+    keys, are compared: float32 gated at LOGIT_TOL with the same argmax at
+    every position, bf16 reported.  Each layer launches the kernel once
+    (the float32 forward the SIMT kernel, the bf16 one the tensor-core
+    kernel) and calls no plain version.  The float32 gate must pass the
+    control and reject WINDOW_FAULT, the window dropped from the plain
+    attention."""
+    import torch
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        kmodel = _full_model(arch, dtype, "kernel", n_layers=WINDOW_LAYERS)
+        _weight_set("layer_fan_in", kmodel)
+        rmodel = _full_model(arch, dtype, "ref", n_layers=WINDOW_LAYERS,
+                             params=kmodel.params.to_dict())
+        g = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, kmodel.cfg.vocab, (1, WINDOW_S), generator=g,
+                             device="cuda")
+        before, fa_before = _counts(), _fa_variants()
+        lk = tail_logits(kmodel, toks, WINDOW_TAIL)
+        launched, plain = _since(before)
+        fa_by_variant = _fa_variants_since(fa_before)
+        lr = tail_logits(rmodel, toks, WINDOW_TAIL)
+        top2 = torch.topk(lr[0], 2, dim=-1).values
+        row = {"arch": arch, "dtype": dtype, "weights": "layer_fan_in",
+               "layers": WINDOW_LAYERS, "S": WINDOW_S,
+               "window": kmodel.cfg.window, "positions": WINDOW_TAIL,
+               "max_logit_diff": float((lk - lr).abs().max()),
+               "argmax_differs_at": int((lk.argmax(-1)
+                                         != lr.argmax(-1)).sum()),
+               "min_top2_gap": float((top2[:, 0] - top2[:, 1]).min()),
+               "max_abs_logit": float(lr.abs().max()), "gate": LOGIT_TOL,
+               "kernel_launches": launched, "plain_calls": plain,
+               "flash_launches_by_variant": fa_by_variant,
+               "gated": dtype == "float32", "planted_faults": {}}
+        if row["gated"]:
+            for f in (control, WINDOW_FAULT):
+                with attention_fault(f):
+                    lf = tail_logits(rmodel, toks, WINDOW_TAIL)
+                diff = float((lf - lr).abs().max())
+                differs = int((lf.argmax(-1) != lr.argmax(-1)).sum())
+                row["planted_faults"][f] = {
+                    "max_logit_diff": diff, "argmax_differs_at": differs,
+                    "gates": diff / LOGIT_TOL,
+                    "rejected": diff > LOGIT_TOL or differs > 0}
+        log("model window " + json.dumps(row))
+        res[dtype] = row
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"non-finite logits: {row}")
+        if (launched != {"flash_attention_fwd": WINDOW_LAYERS} or plain
+                or fa_by_variant[FA_PATH_VARIANT[dtype]] != WINDOW_LAYERS):
+            raise AssertionError(f"the forward launched {launched} (by "
+                                 f"variant {fa_by_variant}) and called plain "
+                                 f"versions {plain}, not {WINDOW_LAYERS} "
+                                 f"{FA_PATH_VARIANT[dtype]} launches")
+        if row["gated"] and (row["max_logit_diff"] > LOGIT_TOL
+                             or row["argmax_differs_at"]):
+            raise AssertionError(f"float32 kernel path disagrees past the "
+                                 f"window: {row}")
+        faults = row["planted_faults"]
+        if faults and (faults[control]["rejected"]
+                       or not faults[WINDOW_FAULT]["rejected"]):
+            raise AssertionError(f"the float32 gate does not tell the "
+                                 f"control from {WINDOW_FAULT}: {row}")
+        del kmodel, rmodel, lk, lr
+        _free()
+    return res
 
 
 def _assignments(cfg, T):
@@ -1017,12 +1192,20 @@ def _f64_attention():
     """While open, the plain attention computes in float64 and rounds
     back: the same function, rounded elsewhere, so a plain-path result
     under it differs from the float32 plain path's by that path's own
-    float32 floor."""
+    float32 floor.  The plain attention widens q and k with ``.float()``,
+    which would round them back to float32: for the call, ``.float()``
+    widens to float64, so the logits and the softmax are float64 too."""
+    import torch
     from repro_torch.models import attention
     plain = attention.ref_attention
 
     def f64(q, k, v, **kw):
-        return plain(q.double(), k.double(), v.double(), **kw).to(q.dtype)
+        widen, torch.Tensor.float = torch.Tensor.float, torch.Tensor.double
+        try:
+            return plain(q.double(), k.double(), v.double(),
+                         **kw).to(q.dtype)
+        finally:
+            torch.Tensor.float = widen
     attention.ref_attention = f64
     try:
         yield
@@ -1041,9 +1224,10 @@ def _f64_floor(rmodel, toks, lr, choices):
 
 @contextlib.contextmanager
 def attention_fault(fault):
-    """Plant one of GEMMA2_FAULTS or STABLELM_FAULTS, or the control, in
-    the plain attention path while open (None: nothing):
-    ``no_attn_softcap`` calls the plain attention without its cap,
+    """Plant one of GEMMA2_FAULTS, STABLELM_FAULTS, STARCODER2_FAULTS or
+    WINDOW_FAULT, or the control, in the plain attention path while open
+    (None: nothing): ``no_attn_softcap`` calls the plain attention without
+    its cap, ``no_window`` without its window,
     ``no_final_softcap`` leaves the logits uncapped, ``gqa_mod`` gives
     query head h KV head h % KH, ``kv_head_shift`` the KV head after its
     own, ``causal_shift`` lets each query see the key one position after
@@ -1065,6 +1249,9 @@ def attention_fault(fault):
     if fault == "no_attn_softcap":
         attention.ref_attention = lambda *a, **kw: plain(*a, **dict(kw,
                                                                     cap=None))
+    elif fault == WINDOW_FAULT:
+        attention.ref_attention = lambda *a, **kw: plain(
+            *a, **dict(kw, window=None))
     elif fault == "no_final_softcap":
         lm.softcap = lambda x, cap: x
     elif fault == "gqa_mod":
@@ -1487,13 +1674,12 @@ def phase_serve(out, arch):
         name: launches[name] for name in expected}
 
 
-def _top2_gap(cfg, prompt, tokens, step, params=None):
+def _top2_gap(cfg, prompt, tokens, step):
     """Top-2 logit gap of the sequential reference at ``step`` (0 = the
     prefill's token), replaying its own tokens."""
     import torch
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, slots=1, max_len=MAX_LEN, device="cuda",
-                      params=params)
+    eng = ServeEngine(cfg, slots=1, max_len=MAX_LEN, device="cuda")
     with torch.inference_mode():
         toks = torch.tensor([prompt], device="cuda")
         logits, caches = eng._prefill(toks)
@@ -1505,66 +1691,79 @@ def _top2_gap(cfg, prompt, tokens, step, params=None):
     return float(top[0] - top[1])
 
 
-def _rescaled_numpy(arch, weights):
-    """The port's float32 init of ``arch`` rescaled in place as the weight
-    set ``weights`` draws it (``_weight_set``), as host numpy arrays: a
-    parameter tree the serving entry points take as ``params``."""
-    from repro_torch import bridge
-    model = _full_model(arch, "float32", "kernel")
-    _weight_set(weights, model)
-    tree = bridge.params_to_numpy(model)
-    del model
-    _free()
-    return tree
+@contextlib.contextmanager
+def _engines_drawn_as(weights):
+    """While open, every :class:`ServeEngine` built in this process from
+    its seeded init (no ``params``) rescales its parameters in place on
+    the card as the weight set ``weights`` draws them (``_weight_set``),
+    so the served, sequential and replaying engines of a phase hold the
+    same weights with no host copy (starcoder2-15b's float32 tree is 63.8
+    GB)."""
+    from repro_torch.serve.engine import ServeEngine
+    init = ServeEngine.__init__
+
+    def drawn(self, *a, params=None, **kw):
+        init(self, *a, params=params, **kw)
+        if params is None:
+            _weight_set(weights, self.model)
+    ServeEngine.__init__ = drawn
+    try:
+        yield
+    finally:
+        ServeEngine.__init__ = init
 
 
 def phase_parity(out, arch):
     """float32 served tokens against the sequential baseline's, both
     serving the weight set that MODEL_CHECKS names as the arch's "parity"
-    (passed as ``params``), else the port's init.  recurrentgemma-9b
+    (each engine rescales its own seeded parameters, ``_engines_drawn_as``),
+    else the port's init.  recurrentgemma-9b
     serves ``layer_fan_in``: at the port's init float32 rounding alone
     moves its logits by O(1), past their top-2 gaps (see RG_LOGIT_FAULTS),
     so batched and sequential serving, whose products round differently,
-    part early.  gemma2-2b and stablelm-1.6b serve the port's init, where
-    phases 24 and 28 gate float32."""
-    import torch
+    part early; so does starcoder2-15b, whose plain path at the port's init
+    differs from its own float64 attention by O(1) (phase 32).  gemma2-2b
+    and stablelm-1.6b serve the port's init, where phases 24 and 28 gate
+    float32."""
+    import resource
     from repro_torch.configs import ARCHS
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
     cfg = ARCHS[arch].cfg.replace(dtype="float32")
     weights = MODEL_CHECKS[arch].get("parity", "seeded")
-    params = (_rescaled_numpy(arch, weights) if weights != "seeded"
-              else None)
-    fa_before = _fa_variants()
-    res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
-                    max_len=MAX_LEN, load=load, device="cuda",
-                    dtype="float32", params=params)
-    got = {r["id"]: r["tokens"] for r in res["result"]["records"]}
-    _free()           # one float32 engine on the card at a time
     reqs = all_requests(load, 2, cfg.vocab)
-    seq = run_sequential(cfg, reqs, max_len=MAX_LEN, realtime=False,
-                         device="cuda", params=params)
-    want = {r["id"]: r["tokens"] for r in seq}
-    _free()
-    _check_float32_simt(_fa_variants_since(fa_before), f"parity {arch}")
     prompts = {r["id"]: r["prompt"] for r in reqs}
-    if set(got) != set(want):
-        raise AssertionError("served and sequential request ids differ")
-    diffs = []
-    for rid in sorted(want):
-        a, b = got[rid], want[rid]
-        if a == b:
-            continue
-        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                    min(len(a), len(b)))
-        gap = (_top2_gap(cfg, prompts[rid], b, step, params)
-               if step < min(len(a), len(b)) else float("inf"))
-        diffs.append({"id": rid, "step": step, "top2_gap": gap})
+    fa_before = _fa_variants()
+    with _engines_drawn_as(weights):
+        res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
+                        max_len=MAX_LEN, load=load, device="cuda",
+                        dtype="float32")
+        got = {r["id"]: r["tokens"] for r in res["result"]["records"]}
+        _free()           # one float32 engine on the card at a time
+        seq = run_sequential(cfg, reqs, max_len=MAX_LEN, realtime=False,
+                             device="cuda")
+        want = {r["id"]: r["tokens"] for r in seq}
         _free()
+        _check_float32_simt(_fa_variants_since(fa_before), f"parity {arch}")
+        if set(got) != set(want):
+            raise AssertionError("served and sequential request ids differ")
+        diffs = []
+        for rid in sorted(want):
+            a, b = got[rid], want[rid]
+            if a == b:
+                continue
+            step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                        min(len(a), len(b)))
+            gap = (_top2_gap(cfg, prompts[rid], b, step)
+                   if step < min(len(a), len(b)) else float("inf"))
+            diffs.append({"id": rid, "step": step, "top2_gap": gap})
+            _free()
     log("parity " + json.dumps({"arch": arch, "requests": len(want),
                                 "weights": weights,
                                 "identical": len(want) - len(diffs),
-                                "differing": diffs}))
+                                "differing": diffs,
+                                "peak_rss_gib": resource.getrusage(
+                                    resource.RUSAGE_SELF).ru_maxrss / 2**20}))
     bad = [d for d in diffs if not d["top2_gap"] < NEAR_TIE]
     if bad:
         raise AssertionError(f"float32 served tokens differ from the "
@@ -1835,15 +2034,14 @@ def replay_engine_calls(engine, calls):
             yield call, out
 
 
-def _replay(cfg, params, calls, fault):
+def _replay(cfg, calls, fault):
     """Replay the recorded ``calls`` through a plain-attention engine with
-    ``params`` and ``fault`` planted in its MoE layers (None: the
-    control): the tokens that differ from the served ones, those beyond a
-    near-tie, and the decode steps in which a layer dropped an
-    assignment."""
+    ``fault`` planted in its MoE layers (None: the control): the tokens
+    that differ from the served ones, those beyond a near-tie, and the
+    decode steps in which a layer dropped an assignment."""
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(cfg.replace(attn_impl="ref"), slots=4,
-                      max_len=MAX_LEN, device="cuda", params=params)
+                      max_len=MAX_LEN, device="cuda")
     compared, differing, steps, drop_steps = 0, [], 0, 0
     with moe_fault(fault), moe_drops() as drops:
         for i, (call, rows) in enumerate(replay_engine_calls(eng, calls)):
@@ -1868,7 +2066,7 @@ def phase_replay(out):
     served run's engine calls through a plain-attention engine with the
     same weights, fed the served tokens: the control must pass (every
     token equal or a near-tie) and each of MOE_FAULTS fail.  Both serve
-    the ``contraction_fan_in`` weights (passed as ``params``): at the
+    the ``contraction_fan_in`` weights (``_engines_drawn_as``): at the
     port's init float32 rounding alone decides granite's tokens (phase
     20).  The sequential baseline decodes each request alone (T=1, where
     top-8 of 32 never collides), so its tokens may differ where the
@@ -1877,22 +2075,21 @@ def phase_replay(out):
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
     cfg = ARCHS[GRANITE].cfg.replace(dtype="float32")
-    params = _rescaled_numpy(GRANITE, "contraction_fan_in")
     fa_before = _fa_variants()
-    with record_engine_calls() as calls:
-        res = run_serve(arch=GRANITE, reduced=False, clients=2, slots=4,
-                        max_len=MAX_LEN, load=load, device="cuda",
-                        dtype="float32", params=params)
-    r = res["result"]
-    served = {rec["id"]: rec["tokens"] for rec in r["records"]}
-    del res
-    _free()
-    runs = {str(f): _replay(cfg, params, calls, f)
-            for f in (None,) + MOE_FAULTS}
-    seq = run_sequential(cfg, all_requests(load, 2, cfg.vocab),
-                         max_len=MAX_LEN, realtime=False, device="cuda",
-                         params=params)
-    _free()
+    with _engines_drawn_as("contraction_fan_in"):
+        with record_engine_calls() as calls:
+            res = run_serve(arch=GRANITE, reduced=False, clients=2, slots=4,
+                            max_len=MAX_LEN, load=load, device="cuda",
+                            dtype="float32")
+        r = res["result"]
+        served = {rec["id"]: rec["tokens"] for rec in r["records"]}
+        del res
+        _free()
+        runs = {str(f): _replay(cfg, calls, f)
+                for f in (None,) + MOE_FAULTS}
+        seq = run_sequential(cfg, all_requests(load, 2, cfg.vocab),
+                             max_len=MAX_LEN, realtime=False, device="cuda")
+        _free()
     _check_float32_simt(_fa_variants_since(fa_before), "replay granite")
     seq_diff = []
     for rec in seq:
@@ -2709,6 +2906,12 @@ PHASES = {
          lambda out: phase_serve(out, STABLELM)),
     30: ("stablelm-1.6b parity", lambda out: phase_parity(out, STABLELM)),
     31: ("stablelm-1.6b profile", lambda out: phase_profile(out, STABLELM)),
+    32: ("starcoder2-15b model", lambda out: phase_model(out, STARCODER2)),
+    33: ("starcoder2-15b serve (main path)",
+         lambda out: phase_serve(out, STARCODER2)),
+    34: ("starcoder2-15b parity", lambda out: phase_parity(out, STARCODER2)),
+    35: ("starcoder2-15b profile",
+         lambda out: phase_profile(out, STARCODER2)),
 }
 
 
@@ -2773,12 +2976,18 @@ def kernels_line(out):
             by_variant = out.get("flash_main_path_by_variant", {})
             # granite-moe-1b-a400m's shape (H=16, KH=8, D=64), gemma2-2b's
             # (H=8, KH=4, D=256, softcap 50) and stablelm-1.6b's (H=KH=32,
-            # D=64), no window, at S=511, timed as the entry's
-            for key, arch in (("granite", GRANITE), ("gemma2", GEMMA2),
-                              ("stablelm", STABLELM)):
+            # D=64), no window, at S=511, and starcoder2-15b's (H=48, KH=4,
+            # D=128, window 4096) at S=511 and WINDOW_S, timed as the
+            # entry's
+            window = STARCODER2_FA_SHAPE["window"]
+            for key, arch, S, w in (
+                    ("granite", GRANITE, TIMED[0], None),
+                    ("gemma2", GEMMA2, TIMED[0], None),
+                    ("stablelm", STABLELM, TIMED[0], None),
+                    ("starcoder2", STARCODER2, TIMED[0], window),
+                    ("starcoder2_long", STARCODER2, WINDOW_S, window)):
                 g = next((r for r in rows if r["path"] == arch
-                          and r["S"] == TIMED[0] and r["window"] is None),
-                         None)
+                          and r["S"] == S and r["window"] == w), None)
                 entry[key] = g and {
                     k: g.get(k) for k in (
                         "B", "S", "H", "KH", "D", "window", "softcap",
@@ -2789,6 +2998,7 @@ def kernels_line(out):
                         "nocap_device_ms")}
                 if entry[key]:
                     entry[key]["launches_by_variant"] = by_variant.get(arch)
+                    entry[key]["launches"] = by_path.get(arch, {}).get(name)
             # the variant the timed shape launched, the main paths' launches
             # by variant summed, and the SIMT kernel on the same inputs
             entry["variant"] = timed["variant"] if timed else None

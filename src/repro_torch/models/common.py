@@ -58,7 +58,9 @@ def init_param(spec: P, generator: torch.Generator, dtype: torch.dtype,
         std = spec.scale if spec.scale is not None else fan_in ** -0.5
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * std).to(dt)
+    # in place: a second float32 copy of the largest stacked leaf would not
+    # fit beside the rest of a large model's tree
+    return x.mul_(std).to(dt)
 
 
 def init_tree(specs, generator: torch.Generator, dtype: torch.dtype,

@@ -65,6 +65,37 @@ def test_gelu_and_softcap():
     assert tcommon.softcap(torch.from_numpy(x), None) is not None
 
 
+# (spec, std): a stacked leaf (the init takes its fan-in from the layers
+# axis), an embedding leaf (its own scale) and a zeros leaf (no draw)
+INIT_LEAVES = {
+    "stacked": (tcommon.P((4, 16, 8), ("layers", "embed", "mlp")),
+                4 ** -0.5),
+    "embed": (tcommon.P((64, 16), ("vocab", "embed_tbl"), "embed",
+                        scale=16 ** -0.5), 16 ** -0.5),
+    "zeros": (tcommon.P((8,), ("embed",), "zeros"), None),
+}
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+@pytest.mark.parametrize("kind", list(INIT_LEAVES))
+def test_init_param_is_randn_times_std(kind):
+    """``init_param`` scales its float32 draw in place: bit for bit
+    ``torch.randn(shape, generator=g) * std`` from the same seed, cast to
+    the model dtype (zeros for a zeros leaf)."""
+    spec, std = INIT_LEAVES[kind]
+    for dtype in _BITS:
+        got = tcommon.init_param(spec, torch.Generator().manual_seed(3),
+                                 dtype, "cpu")
+        if std is None:
+            want = torch.zeros(spec.shape, dtype=dtype)
+        else:
+            want = (torch.randn(spec.shape,
+                                generator=torch.Generator().manual_seed(3))
+                    * std).to(dtype)
+        assert got.dtype == dtype and got.shape == spec.shape
+        assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype]))
+
+
 def test_layer_norm():
     x, w, b = _rand(4, (3, 48)), _rand(5, (48,)), _rand(6, (48,))
     _close(tcommon.layer_norm(*map(torch.from_numpy, (x, w, b))),

@@ -85,6 +85,12 @@ GEMMA2_CASES = [(S, w) for S in (1, 65, 100, 511) for w in (4096, None)]
 # stablelm-1.6b's prefill shape: B=1, 32 heads, 32 KV heads (MHA: GQA
 # group 1), head dim 64, no window, no softcap
 STABLELM_CASES = (1, 65, 100, 511)
+# starcoder2-15b's prefill shape: B=1, 48 heads, 4 KV heads (GQA group 12),
+# head dim 128, no softcap; its window 4096 at the served lengths, 128 at
+# S=511 (where the window masks keys at this shape), and 4096 at S=4608,
+# where the window masks keys for the last 512 queries
+STARCODER2_CASES = ([(S, 4096) for S in (1, 65, 100, 511)]
+                    + [(511, 128), (4608, 4096)])
 
 
 @pytest.mark.gpu
@@ -106,6 +112,13 @@ def test_flash_variants_match_plain_at_gemma2_shape(cuda, S, window):
 def test_flash_variants_match_plain_at_stablelm_shape(cuda, S):
     _variants_match_plain(cuda, 1, S, 32, 32, 64, None, None,
                           seed=S * 17 + 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", STARCODER2_CASES)
+def test_flash_variants_match_plain_at_starcoder2_shape(cuda, S, window):
+    _variants_match_plain(cuda, 1, S, 48, 4, 128, window, None,
+                          seed=S * 19 + 128)
 
 
 def _variants_match_plain(cuda, B, S, H, KH, D, window, softcap, seed):

@@ -11,6 +11,9 @@ Reduced gemma2-2b at 4 layers is the unit (local, attn) stacked twice,
 with attention softcap 50, final softcap 30 and window 64.  Reduced
 stablelm-1.6b at 4 layers is one stacked segment of 4 MHA layers (4 heads,
 4 KV heads of 32, 8 of them rotated), layernorm with a bias, an untied
+``lm_head``.  Reduced starcoder2-15b at 4 layers is one stacked segment of
+4 local layers (4 heads, 2 KV heads of 32, window 64), layernorm, biases
+on q, k, v, o and both products of its plain GELU MLP, an untied
 ``lm_head``.
 """
 import dataclasses
@@ -60,17 +63,27 @@ GRANITE = "granite-moe-1b-a400m"
 # apart; its grads are held at 10x the scaled limit.  Logits and losses
 # stay within TOL.
 GRADS, CACHES = {"grads": 1}, {"grads": 1, "caches": 1}
+# The weights of a case: "reference", the reference's init as it is, or
+# "layer_fan_in", that init with every stacked leaf it draws at its fan-in
+# scaled to one layer's (``chip_smoke._layer_fan_in``, phase 32's gated
+# float32 set), the same arrays in both packages.  starcoder2-15b takes the
+# second: at the reference's init its float32 logits are rounding noise past
+# TOL (``test_starcoder2_reference_init_within_float32_noise``).
 # id: (arch, layers, MoE overrides, decode batch, stacked segment, the
-# leaves whose limit scales, each with the factor on its scaled limit)
+# leaves whose limit scales, each with the factor on its scaled limit,
+# weights)
 MODELS = {
-    "L6": ("gemma3-1b", 6, {}, 2, False, ()),
-    "L12": ("gemma3-1b", 12, {}, 2, True, ()),
-    "granite": (GRANITE, 2, {}, 4, True, GRADS),
+    "L6": ("gemma3-1b", 6, {}, 2, False, (), "reference"),
+    "L12": ("gemma3-1b", 12, {}, 2, True, (), "reference"),
+    "granite": (GRANITE, 2, {}, 4, True, GRADS, "reference"),
     "granite-cap1.25": (GRANITE, 2, {"capacity_factor": 1.25}, 4, True,
-                        GRADS),
-    "granite-dense1": (GRANITE, 3, {"first_dense": 1}, 4, False, GRADS),
-    "gemma2": ("gemma2-2b", 4, {}, 2, True, CACHES),
-    "stablelm": ("stablelm-1.6b", 4, {}, 2, True, {"grads": 10}),
+                        GRADS, "reference"),
+    "granite-dense1": (GRANITE, 3, {"first_dense": 1}, 4, False, GRADS,
+                       "reference"),
+    "gemma2": ("gemma2-2b", 4, {}, 2, True, CACHES, "reference"),
+    "stablelm": ("stablelm-1.6b", 4, {}, 2, True, {"grads": 10},
+                 "reference"),
+    "starcoder2": ("starcoder2-15b", 4, {}, 2, True, (), "layer_fan_in"),
 }
 
 
@@ -96,6 +109,9 @@ def _models(name):
     tm = build_model(cfg)
     bridge.params_from_jax_numpy(jax.tree.map(np.asarray, jparams), tm,
                                  "cpu")
+    if MODELS[name][6] == "layer_fan_in":
+        chip_smoke._layer_fan_in(tm)
+        jparams = jax.tree.map(jnp.asarray, bridge.params_to_numpy(tm))
     return jm, jparams, tm, MODELS[name]
 
 
@@ -351,32 +367,193 @@ def test_stablelm_planted_faults_move_the_plain_path(models):
         assert st["max_abs"] >= st["rms"] > 10
 
 
-@pytest.mark.parametrize("models", ["stablelm"], indirect=True)
+@pytest.mark.parametrize("models", ["starcoder2"], indirect=True)
+def test_starcoder2_planted_faults_move_the_plain_path(models):
+    """The faults that ``chip_smoke`` plants in starcoder2-15b's plain path
+    (query head h reading KV head h % KH, the next KV head, one key past
+    the causal bound) each move its last logits past the chip check's
+    float32 gate, while its control (K/V expanded by the right map) stays
+    within TOL, at the case's weights (one layer's fan-in, phase 32's
+    gated set).  Then phase 32's window check at this size: a cache-free
+    forward of 80 tokens, past the window of 64, through the kernel route
+    and the plain path (``chip_smoke.tail_logits``) agree within TOL over
+    the positions whose window masks keys, and the window dropped from the
+    plain attention (``no_window``) moves them past the gate while the
+    control does not."""
+    _, _, tm, _ = models
+    H, KH, W = tm.cfg.n_heads, tm.cfg.n_kv_heads, tm.cfg.window
+    assert H > KH > 1 and tm.cfg.pattern == ("local",)
+    diffs, precap = _planted_faults(tm, chip_smoke.STARCODER2_CONTROL,
+                                    chip_smoke.STARCODER2_FAULTS)
+    assert diffs[chip_smoke.STARCODER2_CONTROL] <= TOL, diffs
+    for fault in chip_smoke.STARCODER2_FAULTS:
+        assert diffs[fault] > chip_smoke.LOGIT_TOL, (fault, diffs)
+    # at one layer's fan-in the attention logits have an rms near 1
+    for st in precap.values():
+        assert "share_past_bend" not in st
+        assert st["max_abs"] >= st["rms"] and 0.3 < st["rms"] < 3
+    plain = build_model(tm.cfg.replace(attn_impl="ref")).set_params(
+        tm.params.to_dict())
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, tm.cfg.vocab, size=(1, LONG)))
+    want = chip_smoke.tail_logits(plain, toks, LONG - W)
+    assert want.shape == (1, LONG - W, tm.cfg.vocab)
+    before = tfa.plain_calls
+    got = chip_smoke.tail_logits(tm, toks, LONG - W)
+    assert tfa.plain_calls == before + tm.cfg.n_layers   # the flash route
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
+                               atol=TOL)
+    moved = {}
+    for fault in (chip_smoke.STARCODER2_CONTROL, chip_smoke.WINDOW_FAULT):
+        with chip_smoke.attention_fault(fault):
+            moved[fault] = float((chip_smoke.tail_logits(
+                plain, toks, LONG - W) - want).abs().max())
+    assert moved[chip_smoke.STARCODER2_CONTROL] <= TOL, moved
+    assert moved[chip_smoke.WINDOW_FAULT] > chip_smoke.LOGIT_TOL, moved
+
+
+def test_starcoder2_reference_init_within_float32_noise(monkeypatch):
+    """At the reference's init as it is, reduced starcoder2-15b's float32
+    logits are rounding noise past TOL: ``wq``/``wk`` drawn at 4 reps, not
+    d_model 128, put the attention logits at an rms near 30 with no cap,
+    and the near one-hot softmax amplifies every rounding.  Over the window
+    test's draw (a prefill of 64 tokens, then 16 teacher-forced decode
+    steps past the window) the port's float32 logits sit ``floor`` from its
+    own float64 run (every ``.float()`` cast made float64), above TOL, and
+    the reference's float32 logits sit further still (3.6x the port's on
+    this draw).  Both stay within the chip check's float32 gate
+    (LOGIT_TOL) of that float64 run, and the loss over all 80 tokens
+    within TOL of the reference's; at one layer's fan-in (the
+    ``starcoder2`` case) every LM test holds at TOL."""
+    arch = "starcoder2-15b"
+    jcfg = jreduce(JARCHS[arch].cfg).replace(n_layers=4)
+    cfg = reduce_cfg(ARCHS[arch].cfg).replace(n_layers=4)
+    jm = jbuild(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    tm, t64 = build_model(cfg), build_model(cfg.replace(dtype="float64"))
+    bridge.params_from_jax_numpy(tree, tm, "cpu")
+    bridge.params_from_jax_numpy(
+        jax.tree.map(lambda a: a.astype(np.float64), tree), t64, "cpu")
+    W = cfg.window
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(2, LONG)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    jl, _ = jax.jit(jm.loss)(jparams, {"tokens": jnp.asarray(toks),
+                                       "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        tl, _ = tm.loss({"tokens": torch.from_numpy(toks).long(),
+                         "labels": torch.from_numpy(labels).long()})
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL, atol=TOL)
+
+    def run(m):
+        """The prefill's logits, then each decode step's, float64."""
+        with torch.inference_mode():
+            lg, cache = m.prefill(torch.from_numpy(toks[:, :W]).long(),
+                                  m.init_cache(2, LONG))
+            out = [lg.double()]
+            for p in range(W, LONG):
+                lg, cache = m.decode_step(
+                    cache, torch.from_numpy(toks[:, p:p + 1]).long(),
+                    torch.from_numpy(np.full((2, 1), p, np.int32)))
+                out.append(lg.double())
+        return torch.cat(out, dim=1)
+    got = run(tm)
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "float", torch.Tensor.double)
+        f64 = run(t64)
+    jlog, jcache = jax.jit(jm.prefill)(jparams, jnp.asarray(toks[:, :W]),
+                                       jm.init_cache(2, LONG))
+    want = [np.asarray(jlog)]
+    jdecode = jax.jit(jm.decode_step)
+    for p in range(W, LONG):
+        jlog, jcache = jdecode(jparams, jcache, jnp.asarray(toks[:, p:p + 1]),
+                               jnp.asarray(np.full((2, 1), p, np.int32)))
+        want.append(np.asarray(jlog))
+    want = torch.from_numpy(np.concatenate(want, axis=1)).double()
+    floor = float((got - f64).abs().max())
+    noise = float((want - f64).abs().max())
+    assert floor > TOL, floor
+    assert max(floor, noise) <= chip_smoke.LOGIT_TOL, (floor, noise)
+
+
+def test_f64_attention_computes_in_float64():
+    """``chip_smoke._f64_attention`` (the plain path's float32 floor in
+    phases 20, 24, 28 and 32) runs the whole plain attention in float64:
+    on float32 inputs whose logits reach ~100, as the port's init gives
+    them, its output is the float64 result rounded once (here against
+    SDPA in float64).  The plain attention's own ``.float()`` once rounded
+    q and k back to float32, leaving only p.v in float64 and an error of
+    ~1e-5 of the output's scale."""
+    from repro_torch.models import attention
+    rng = np.random.default_rng(8)
+    B, S, H, KH, D = 1, 48, 4, 2, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D))
+                                .astype(np.float32) * scale)
+               for h, scale in ((H, 6.0), (KH, 6.0), (KH, 1.0)))
+    pos = torch.arange(S)[None]
+    with chip_smoke._f64_attention():
+        got = attention.ref_attention(q, k, v, scale=D ** -0.5, q_pos=pos,
+                                      k_pos=pos, window=None, cap=None)
+    assert got.dtype == torch.float32
+    want = torch.nn.functional.scaled_dot_product_attention(
+        *(t.double().transpose(1, 2) for t in (q, k.repeat_interleave(
+            H // KH, 2), v.repeat_interleave(H // KH, 2))),
+        is_causal=True, scale=D ** -0.5).transpose(1, 2).float()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+# the leaves that ``test_redrawn_norms_match`` redraws in each case: every
+# layernorm, and every bias
+NORMS = [("final_norm",), ("seg0", "u0", "ln1"), ("seg0", "u0", "ln2")]
+REDRAWN = {
+    "stablelm": NORMS,
+    "starcoder2": sorted(NORMS + [("seg0", "u0", "mix", b)
+                                  for b in ("bq", "bk", "bv", "bo")]
+                         + [("seg0", "u0", "mlp", b) for b in ("b1", "b2")]),
+}
+BIASES = ("bq", "bk", "bv", "bo", "b1", "b2")
+
+
+@pytest.mark.parametrize("models", list(REDRAWN), indirect=True)
 def test_redrawn_norms_match(models):
-    """Every layernorm's ``w`` redrawn as 1 + 0.1 N and its ``b`` as 0.1 N
-    (numpy seeded), the same arrays written into both packages' trees:
-    the loss, a prefill's logits and greedy decode steps' logits match the
-    reference's within TOL, and the redraw moves the logits.  At the
-    reference's init (``w`` = 1, ``b`` = 0) a port that dropped the bias or
-    swapped ``w`` and ``b`` would pass every other test."""
-    jm, jparams, tm, _ = models
+    """Every layernorm's ``w`` redrawn as 1 + 0.1 N and its ``b`` as 0.1 N,
+    and every bias of the attention and the MLP (``bq``, ``bk``, ``bv``,
+    ``bo``, ``b1``, ``b2``) as 0.1 N (numpy seeded), the same arrays
+    written into both packages' trees: the loss, a prefill's logits and
+    greedy decode steps' logits match the reference's within TOL, and the
+    redraw moves the logits.  The other leaves are the reference's init as
+    it is, whatever the case's weights.  At that init (``w`` = 1, every
+    bias 0) a port that dropped a bias, put it after the GELU or swapped
+    ``w`` and ``b`` would pass every other test."""
+    jm, _, tm, spec = models
+    base = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(5)
-    norms = []
+    redrawn = []
 
     def redraw(t, path):
         if set(t) == {"w", "b"}:                 # a layernorm
-            norms.append(path)
+            redrawn.append(path)
             return {"w": 1 + 0.1 * rng.standard_normal(t["w"].shape),
                     "b": 0.1 * rng.standard_normal(t["b"].shape)}
-        return {k: redraw(v, path + (k,)) if isinstance(v, dict) else v
-                for k, v in t.items()}
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = redraw(v, path + (k,))
+            elif k in BIASES:
+                redrawn.append(path + (k,))
+                out[k] = 0.1 * rng.standard_normal(v.shape)
+            else:
+                out[k] = v
+        return out
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
-                        redraw(jax.tree.map(np.asarray, jparams), ()))
-    assert sorted(norms) == [("final_norm",), ("seg0", "u0", "ln1"),
-                             ("seg0", "u0", "ln2")]
+                        redraw(base, ()))
+    case = next(n for n, s in MODELS.items() if s == spec)
+    assert sorted(redrawn) == REDRAWN[case]
     jp = jax.tree.map(jnp.asarray, tree)
-    rm = build_model(tm.cfg)
+    rm, sm = build_model(tm.cfg), build_model(tm.cfg)
     bridge.params_from_jax_numpy(tree, rm, "cpu")
+    bridge.params_from_jax_numpy(base, sm, "cpu")
     rng = np.random.default_rng(0)
     toks = rng.integers(0, tm.cfg.vocab, size=(2, 24)).astype(np.int32)
     labels = np.roll(toks, -1, axis=1)
@@ -392,8 +569,8 @@ def test_redrawn_norms_match(models):
     with torch.inference_mode():
         tlog, tcache = rm.prefill(torch.from_numpy(toks[:, :S]).long(),
                                   rm.init_cache(B, L))
-        slog, _ = tm.prefill(torch.from_numpy(toks[:, :S]).long(),
-                             tm.init_cache(B, L))
+        slog, _ = sm.prefill(torch.from_numpy(toks[:, :S]).long(),
+                             sm.init_cache(B, L))
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=TOL,
                                atol=TOL)
     assert float((tlog - slog).abs().max()) > 100 * TOL

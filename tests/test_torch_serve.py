@@ -46,6 +46,7 @@ ARCH = "gemma3-1b"
 GRANITE = "granite-moe-1b-a400m"
 GEMMA2 = "gemma2-2b"
 STABLELM = "stablelm-1.6b"
+STARCODER2 = "starcoder2-15b"
 MAX_LEN = 48
 
 
@@ -90,6 +91,18 @@ def stablelm():
     jcfg = jreduce(JARCHS[STABLELM].cfg)
     eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
     return ((reduce_cfg(ARCHS[STABLELM].cfg), jcfg),
+            jax.tree.map(np.asarray, eng.params))
+
+
+@pytest.fixture(scope="module")
+def starcoder2():
+    """Reduced starcoder2-15b (two local layers of 4 heads and 2 KV heads,
+    window 64, layernorm, biases, the plain GELU MLP, an untied
+    ``lm_head``): (port cfg, reference cfg) and the reference engine's
+    weights."""
+    jcfg = jreduce(JARCHS[STARCODER2].cfg)
+    eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
+    return ((reduce_cfg(ARCHS[STARCODER2].cfg), jcfg),
             jax.tree.map(np.asarray, eng.params))
 
 
@@ -199,6 +212,46 @@ def test_run_serve_stablelm_matches_reference_sequential(stablelm):
     assert cfgs[0].n_heads == cfgs[0].n_kv_heads == 4
     assert "lm_head" in params
     _serve_matches_reference(cfgs, params, "inproc", None, arch=STABLELM)
+
+
+def test_run_serve_starcoder2_matches_reference_sequential(starcoder2):
+    """Reduced starcoder2-15b served in-proc (GQA at group 2 through the
+    flash route in every prefill, a ring-buffered window cache in every
+    layer, biases, the plain GELU MLP, untied logits) answers every
+    request with the reference's sequential tokens."""
+    cfgs, params = starcoder2
+    assert cfgs[0].n_layers == 2 and cfgs[0].pattern == ("local",)
+    assert cfgs[0].n_heads == 2 * cfgs[0].n_kv_heads
+    mix = params["seg0"]["u0"]["mix"]
+    assert {"bq", "bk", "bv", "bo"} <= set(mix)
+    assert {"b1", "b2"} <= set(params["seg0"]["u0"]["mlp"])
+    assert "lm_head" in params
+    _serve_matches_reference(cfgs, params, "inproc", None, arch=STARCODER2)
+
+
+def test_engines_drawn_as_rescale_their_own_params():
+    """``chip_smoke._engines_drawn_as`` (the float32 weight sets of phases
+    16, 22 and 34, with no host copy): an engine built from its seeded
+    init while it is open
+    holds that init rescaled as ``_layer_fan_in`` rescales it, bit for
+    bit; an engine given ``params`` keeps them as given."""
+    from repro_torch import bridge
+    cfg = reduce_cfg(ARCHS[STARCODER2].cfg)
+    seeded = ServeEngine(cfg, slots=1, max_len=MAX_LEN, device="cpu")
+    given = bridge.params_to_numpy(seeded.model)
+    with chip_smoke._engines_drawn_as("layer_fan_in"):
+        drawn = ServeEngine(cfg, slots=1, max_len=MAX_LEN, device="cpu")
+        kept = ServeEngine(cfg, slots=1, max_len=MAX_LEN, device="cpu",
+                           params=given)
+    chip_smoke._layer_fan_in(seeded.model)
+    want = jax.tree.leaves(bridge.params_to_numpy(seeded.model))
+    got = jax.tree.leaves(bridge.params_to_numpy(drawn.model))
+    assert any((a != b).any() for a, b in zip(want, jax.tree.leaves(given)))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(bridge.params_to_numpy(kept.model)),
+                    jax.tree.leaves(given)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_recorded_calls_rebuild_tokens_and_replay(granite):
