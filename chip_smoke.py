@@ -8,16 +8,20 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Eight main paths are driven, each at full width and
-depth: serving gemma3-1b (flash attention), mamba2-370m (the SSD scan),
+raise on failure.  Nine main paths are driven, each at full width, all but
+deepseek-v3-671b at full depth: serving gemma3-1b (flash attention),
+mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
 layers), granite-moe-1b-a400m (flash attention at 16 heads, 8 KV heads of
 64, and the MoE layer), gemma2-2b (flash attention at 8 heads, 4 KV heads
 of 256 with softcap 50), stablelm-1.6b (flash attention at 32 heads and 32
 KV heads of 64, layernorm, partial rotary) and starcoder2-15b (flash
 attention at 48 heads, 4 KV heads of 128, window 4096 in every layer;
-biases, the plain GELU MLP), and training gemma3-1b (flash attention in
-every forward):
+biases, the plain GELU MLP), deepseek-v3-671b cut to its first 4 layers
+(3 dense, 1 MoE) and no MTP head (MLA: flash attention at 128 heads of
+q/k head dim 192 and v head dim 128; 256 experts top-8, a sigmoid router
+and a shared expert), and training gemma3-1b (flash attention in every
+forward):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -28,9 +32,10 @@ every forward):
 3. the flash kernels against their plain PyTorch version on the card, on
    the reference's test cases, ragged tails and the serving paths' shapes
    (gemma3-1b's, recurrentgemma-9b's, the training forward's,
-   granite-moe-1b-a400m's, gemma2-2b's, stablelm-1.6b's and
-   starcoder2-15b's, the last also at 4,608 tokens, where its window of
-   4096 masks keys), each row with the variant it
+   granite-moe-1b-a400m's, gemma2-2b's, stablelm-1.6b's,
+   starcoder2-15b's, also at 4,608 tokens, where its window of 4096 masks
+   keys, and deepseek-v3-671b's, where v has its own head dim), each row
+   with the variant it
    launched (the bf16 tensor-core kernel for bf16, the SIMT kernel for
    float32), with CUDA-event and device times of the kernel, of the SIMT
    kernel on the same inputs (held to the same gate), the plain version
@@ -162,7 +167,25 @@ every forward):
 33. starcoder2-15b's main path: event-driven serving in bf16, counted as
     in phase 5;
 34. float32 serving of starcoder2-15b against the sequential baseline;
-35. where starcoder2-15b's serving time goes, as in phase 7.
+35. where starcoder2-15b's serving time goes, as in phase 7;
+36. deepseek-v3-671b (4 layers, no MTP): prefill through the kernel (K and
+    V materialised from MLA's latent, flash at D=192, Dv=128) against
+    prefill through the plain path (the reference's absorbed form), the
+    plain path's routers held to the kernel path's expert choices, bf16
+    at the port's init (reported) and float32 at the port's init and at
+    contraction fan-in (each gated unless the plain path's own float32
+    floor, its absorbed attention in float64, is above the gate), with the
+    pre-softmax logits of the first and last layer, the routing flips and
+    each call's dropped assignments, and faults planted in the plain path
+    (the scale taken from v's head dim, k_rope left unrotated, one key
+    past the causal bound), each of which every gated set must reject at
+    every length, beside a control (the plain path un-absorbed);
+37. deepseek-v3-671b's main path: event-driven serving in bf16, counted
+    as in phase 5;
+38. float32 serving of deepseek-v3-671b gated by replay, as phase 22:
+    every token must equal the replay's, and the gate must reject phase
+    22's two MoE faults;
+39. where deepseek-v3-671b's serving time goes, as in phase 7.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -251,7 +274,8 @@ SSD_ENTRY = {"mma_bf16": "ssd_mma_bf16_kernel", "simt": "ssd_fwd_kernel"}
 GEMMA, MAMBA, RGEMMA = "gemma3-1b", "mamba2-370m", "recurrentgemma-9b"
 # the kernel each kind of layer launches once a prefill
 KIND_KERNEL = {"attn": "flash_attention_fwd", "local": "flash_attention_fwd",
-               "ssd": "ssd_fwd", "rglru": "rglru_fwd"}
+               "mla": "flash_attention_fwd", "ssd": "ssd_fwd",
+               "rglru": "rglru_fwd"}
 MAX_LEN = 512             # = gemma3-1b's window: no prompt outgrows a cache
 PREFILL_S = (100, 256, 511)
 LOGIT_TOL = 1e-3          # float32 kernel path vs plain path, last logits
@@ -361,6 +385,27 @@ WINDOW_LAYERS = 4
 WINDOW_TAIL = WINDOW_S - STARCODER2_FA_SHAPE["window"]
 WINDOW_FAULT = "no_window"
 
+DEEPSEEK = "deepseek-v3-671b"
+# the card holds deepseek-v3-671b cut in depth: its first 4 layers (the 3
+# dense ones and 1 MoE layer, so first_dense = 3 stands) and no MTP head,
+# which serving never reads: 15.11e9 parameters, 30.2 GB in bf16 and 60.4
+# GB in float32 (with MTP's layer, 106.9 GB).  Every width is the config's
+CUTS = {DEEPSEEK: dict(n_layers=4, mtp_depth=0)}
+# the serving path's flash shapes on deepseek-v3-671b's MLA layers: B=1,
+# 128 heads, K and V materialised per head from the latent (KH = H), q/k
+# head dim 192 (128 nope + 64 rope), v head dim 128, no window, no softcap
+DEEPSEEK_FA_SHAPE = dict(H=128, KH=128, D=192, Dv=128, window=None)
+# faults planted in phase 36's plain path (deepseek-v3-671b's absorbed MLA,
+# ``attention.mla_absorbed``): the logits scaled by v's head dim (128^-0.5)
+# in place of q/k's (192^-0.5), k_rope cached unrotated, and each query
+# also seeing the key one position after it.  The control attends over the
+# same cache un-absorbed: per-head K and V materialised from the latent
+# through the plain GQA attention, the same function rounded elsewhere.
+# The control must pass every gated float32 run; each fault must fail the
+# gate at every length of every gated weight set
+DEEPSEEK_CONTROL = "mla_expanded"
+DEEPSEEK_FAULTS = ("v_dim_scale", "k_rope_unrotated", "causal_shift")
+
 RG_SOURCE = "src/repro_torch/csrc/rglru_fwd.cu"
 RG_REPLACES = "src/repro/kernels/rglru/kernel.py:59"
 # (B, T, W, h0, lam): the reference's RG_CASES (tests/test_kernels.py, drawn
@@ -424,24 +469,26 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def kernel_device_ms(fn, entry, event_ms=None, iters=20, warmup=3,
-                     lead=10, tries=3):
+                     lead=10, tries=5):
     """Mean device milliseconds of one launch of the kernel whose name
-    holds ``entry`` (``fn`` launches it once a call), and how many of the
-    window's launches the profiler recorded, from
+    holds ``entry`` (``fn`` launches it once a call), how many of the
+    window's launches the profiler recorded, and for every window profiled
+    [launches of ``entry``, device events] it recorded, from
     ``torch.profiler``'s device events: the kernel's own time, without the
     host's time between launches (which CUDA events around back-to-back
     calls include when a call's host work outlasts its kernel).  The
     profiler can miss the first launches of a window, so each window
     opens with ``lead`` launches that are not counted, and the mean is over
     the last ``iters`` launches it recorded; a window that recorded fewer
-    than ``iters`` is profiled again, up to ``tries`` times.  With
+    than ``iters`` is profiled again, up to ``tries`` times (a window may
+    come back with no device event at all: the profiler dropped it).  With
     ``event_ms`` (``cuda_ms`` of the same calls) a window whose device time
     is under half of it is flagged in a printed line: there the host's work
     between launches, not the kernel, set the event time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    counts = []
+    counts, device_events = [], []
     for _ in range(tries):
         for _ in range(warmup):
             fn()
@@ -450,31 +497,36 @@ def kernel_device_ms(fn, entry, event_ms=None, iters=20, warmup=3,
             for _ in range(lead + iters):
                 fn()
             torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
         spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA and entry in e.name)
+                       for e in events if entry in e.name)
         counts.append(len(spans))
+        device_events.append(len(events))
         if iters <= len(spans) <= lead + iters:
+            windows = [list(w) for w in zip(counts, device_events)]
             ms = sum(t1 - t0 for t0, t1 in spans[-iters:]) / 1e3 / iters
             if event_ms is not None and ms < event_ms / 2:
                 log(f"kernel_device_ms FLAG {entry}: device {ms:.5f} ms is "
                     f"under half the event time {event_ms:.5f} ms (the "
                     f"host's work between launches set the event time)")
-            return ms, len(spans)
+            return ms, len(spans), windows
     raise AssertionError(f"profiled {counts} launches of {entry} in "
                          f"windows of {lead + iters} calls, not {iters} or "
-                         f"more")
+                         f"more ({device_events} device events a window)")
 
 
-def fa_bound(B, H, KH, S, D, window, dtype):
+def fa_bound(B, H, KH, S, D, window, dtype, Dv=None):
     """Least time for one causal attention call: each input read once and
     the output written once over the memory rate, against the products
-    over the live (q, k) pairs over the peak rate of the dtype."""
+    over the live (q, k) pairs over the peak rate of the dtype.  q and k
+    have head dim D, v and the output Dv (D where None)."""
+    Dv = D if Dv is None else Dv
     elem = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * B * H * S * D + 2 * B * KH * S * D) * elem
+    nbytes = (B * H * S * (D + Dv) + B * KH * S * (D + Dv)) * elem
     w = window or S
     pairs = sum(min(i + 1, w) for i in range(S))
-    flops = 4 * B * H * pairs * D          # q.k and p.v, 2 flops a MAC
+    flops = 2 * B * H * pairs * (D + Dv)   # q.k and p.v, 2 flops a MAC
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return {"bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -535,10 +587,11 @@ def phase_build(out):
         "kernels": ptxas.get("ssd_fwd"),
         "dynamic_smem_bytes_at_N128_P64_chunk128": smem}))
     log("rglru_fwd ptxas " + json.dumps({"kernels": ptxas.get("rglru_fwd")}))
-    fa_smem = {D: fa_ops.mma_smem_bytes(D) for D in fa_ops.HEAD_DIMS}
+    fa_smem = {f"{D},{Dv}": fa_ops.mma_smem_bytes(D, Dv)
+               for D, Dv in fa_ops.HEAD_DIM_PAIRS}
     log("flash_attention_fwd ptxas " + json.dumps({
         "kernels": ptxas.get("flash_attention_fwd"),
-        "mma_bf16_dynamic_smem_bytes_by_D": fa_smem}))
+        "mma_bf16_dynamic_smem_bytes_by_D_Dv": fa_smem}))
     out["build_s"] = secs
     out["ptxas"] = ptxas
     out["ssd_smem_bytes"] = smem
@@ -554,27 +607,29 @@ def phase_build(out):
                                          for r in rg)):
         raise AssertionError(f"an RG-LRU kernel is missing from the build "
                              f"log or spills: {rg}")
-    # one tensor-core flash kernel a head dim, none spilling
+    # one tensor-core flash kernel a (D, Dv) pair, none spilling
     fa = [r for r in ptxas.get("flash_attention_fwd") or []
           if FA_ENTRY["mma_bf16"] in r["entry"]]
     if ptxas.get("flash_attention_fwd") is not None and (
-            len(fa) != len(fa_ops.HEAD_DIMS)
+            len(fa) != len(fa_ops.HEAD_DIM_PAIRS)
             or any(r["spill_store_bytes"] for r in fa)):
         raise AssertionError(f"a tensor-core flash kernel is missing from "
                              f"the build log or spills: {fa}")
 
 
-def _fa_inputs(S, H, KH, D, dtype, B, seed, model_layout):
-    """q, k, v as (B, H, S, D): contiguous, or (``model_layout``) as the
-    serving path hands them over, transposed views of (B, S, H, D)."""
+def _fa_inputs(S, H, KH, D, Dv, dtype, B, seed, model_layout):
+    """q, k as (B, H|KH, S, D) and v as (B, KH, S, Dv): contiguous, or
+    (``model_layout``) as the serving path hands them over, transposed
+    views of (B, S, H, D)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
+    shapes = ((H, D), (KH, D), (KH, Dv))
     if model_layout:
-        return [torch.randn((B, S, h, D), generator=g, device="cuda").to(dt)
-                .transpose(1, 2) for h in (H, KH, KH)]
-    return [torch.randn((B, h, S, D), generator=g, device="cuda").to(dt)
-            for h in (H, KH, KH)]
+        return [torch.randn((B, S, h, d), generator=g, device="cuda").to(dt)
+                .transpose(1, 2) for h, d in shapes]
+    return [torch.randn((B, h, S, d), generator=g, device="cuda").to(dt)
+            for h, d in shapes]
 
 
 def _sdpa(q, k, v, *, scale, window):
@@ -639,6 +694,15 @@ def phase_kernels(out):
     cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1,
                    path=STARCODER2, **STARCODER2_FA_SHAPE)
               for S in PATH_S + (WINDOW_S,)]
+    cases += [dict(S=S, softcap=None, dtype="bfloat16", B=1, path=DEEPSEEK,
+                   **DEEPSEEK_FA_SHAPE) for S in PATH_S]
+    # the same shape in float32 (the SIMT kernel, phase 36's float32
+    # prefills), and reduced MLA's head dims (48, 32) in both dtypes
+    cases += [dict(S=S, softcap=None, dtype="float32", B=1,
+                   **DEEPSEEK_FA_SHAPE) for S in (PATH_S[0], PATH_S[-1])]
+    cases += [dict(S=S, H=4, KH=4, D=48, Dv=32, window=None, softcap=None,
+                   dtype=dt, B=2) for S in (100, 300)
+              for dt in ("float32", "bfloat16")]
     # the training forward's calls (phase 19): each rank's 2 x 512 tokens
     cases += [dict(S=TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
                    softcap=None, dtype="bfloat16",
@@ -646,9 +710,10 @@ def phase_kernels(out):
                    path=f"{GEMMA}-train") for w in PATH_WINDOWS]
     rows = []
     for n, c in enumerate(cases):
-        q, k, v = _fa_inputs(c["S"], c["H"], c["KH"], c["D"], c["dtype"],
-                             c["B"], seed=n, model_layout=c.get("path",
-                                                                False))
+        c.setdefault("Dv", c["D"])
+        q, k, v = _fa_inputs(c["S"], c["H"], c["KH"], c["D"], c["Dv"],
+                             c["dtype"], c["B"], seed=n,
+                             model_layout=c.get("path", False))
         kw = dict(scale=c["D"] ** -0.5, causal=True, window=c["window"],
                   softcap=c["softcap"])
         before = dict(ops.launches_by_variant)
@@ -665,8 +730,8 @@ def phase_kernels(out):
                     bool((err <= tol + tol * want.float().abs()).all()))
 
         err, ok = within(got)
-        row = {k2: c[k2] for k2 in ("B", "S", "H", "KH", "D", "window",
-                                    "softcap", "dtype")}
+        row = {k2: c[k2] for k2 in ("B", "S", "H", "KH", "D", "Dv",
+                                    "window", "softcap", "dtype")}
         # every case here is aligned: bf16 takes the tensor cores
         row.update(variant=ran[0] if len(ran) == 1 else ran,
                    max_abs_err=err, tol=tol,
@@ -682,7 +747,8 @@ def phase_kernels(out):
                 row[key + "ms"] = cuda_ms(lambda: ops._launch(
                     v2, q, k, v, out=None, **kw))
                 (row[key + "device_ms"],
-                 row[key + "device_launches_recorded"]) = kernel_device_ms(
+                 row[key + "device_launches_recorded"],
+                 row[key + "device_windows"]) = kernel_device_ms(
                     lambda: ops._launch(v2, q, k, v, out=None, **kw),
                     FA_ENTRY[v2], event_ms=row[key + "ms"])
             row["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v,
@@ -697,7 +763,7 @@ def phase_kernels(out):
                 # the path's kernel on the same inputs without the cap: what
                 # the softcap costs it
                 nocap = dict(kw, softcap=None)
-                row["nocap_device_ms"], _ = kernel_device_ms(
+                row["nocap_device_ms"], *_ = kernel_device_ms(
                     lambda: ops._launch(FA_PATH_VARIANT[c["dtype"]], q, k, v,
                                         out=None, **nocap),
                     FA_ENTRY[FA_PATH_VARIANT[c["dtype"]]])
@@ -706,7 +772,7 @@ def phase_kernels(out):
             row["ok"] = row["ok"] and library_ok
             row["library_ms"] = cuda_ms(library)
             row.update(fa_bound(c["B"], c["H"], c["KH"], c["S"], c["D"],
-                                c["window"], c["dtype"]))
+                                c["window"], c["dtype"], c["Dv"]))
         log("flash_attention_fwd " + json.dumps(row))
         rows.append(row)
     bad = [r for r in rows if not r["ok"]]
@@ -774,13 +840,19 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def _cfg(arch):
+    """``arch``'s config as the card holds it: full width, cut in depth
+    where CUTS says so."""
+    from repro_torch.configs import ARCHS
+    return ARCHS[arch].cfg.replace(**CUTS.get(arch, {}))
+
+
 def _full_model(arch, dtype, attn_impl, params=None, chunk=None,
                 n_layers=None):
     import dataclasses
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
-    cfg = ARCHS[arch].cfg.replace(dtype=dtype, attn_impl=attn_impl)
+    cfg = _cfg(arch).replace(dtype=dtype, attn_impl=attn_impl)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
     if chunk is not None:
@@ -888,6 +960,18 @@ MODEL_CHECKS = {
                      gates={"seeded": (),
                             "layer_fan_in": STARCODER2_FAULTS},
                      parity="layer_fan_in"),
+    # the reference's init draws wo at its heads axis' fan-in (128, not H x
+    # v = 16384) and each expert stack at its expert axis' (256, not d_model
+    # 7168 or d_expert 2048); "contraction_fan_in" draws them at the dims
+    # they contract.  The plain path is routed as the kernel path
+    # (``_routed_as``): top-8 of 256 sigmoid affinities has near-ties
+    DEEPSEEK: dict(runs=(("bfloat16", "seeded", PREFILL_S),
+                         ("float32", "seeded", PREFILL_S),
+                         ("float32", "contraction_fan_in", PREFILL_S)),
+                   f64_floor=True, precap=True,
+                   plant=lambda f: attention_fault(f),
+                   control=DEEPSEEK_CONTROL, faults=DEEPSEEK_FAULTS,
+                   rule="every_s"),
 }
 
 
@@ -958,7 +1042,7 @@ def phase_model(out, arch):
             if f32 and "plant" in checks:
                 planted_at = checks.get("planted_at", lambda f, S, cfg: True)
                 faults = {f: _planted_fault(checks["plant"], rmodel, toks, lr,
-                                            f, gate)
+                                            f, gate, choices)
                           for f in (control,) + checks["faults"]
                           if planted_at(f, S, rmodel.cfg)}
             t_k = _host_ms(lambda: _prefill(kmodel, toks))
@@ -1038,6 +1122,9 @@ def phase_model(out, arch):
                                    "faults_rejected_by": by_fault}))
         res["gated_sets"] = gated_sets
         res["faults_rejected_by"] = by_fault
+        if not gated_sets:
+            raise AssertionError(f"no float32 weight set of {arch} was "
+                                 f"gated, so no planted fault was checked")
         missed = [f for f, sets in by_fault.items() if not sets]
         if checks["rule"] == "some_set" and missed:
             raise AssertionError(f"no gated float32 weight set rejects the "
@@ -1189,28 +1276,37 @@ def moe_drops():
 
 @contextlib.contextmanager
 def _f64_attention():
-    """While open, the plain attention computes in float64 and rounds
-    back: the same function, rounded elsewhere, so a plain-path result
-    under it differs from the float32 plain path's by that path's own
-    float32 floor.  The plain attention widens q and k with ``.float()``,
-    which would round them back to float32: for the call, ``.float()``
-    widens to float64, so the logits and the softmax are float64 too."""
+    """While open, the plain attention (GQA's ``ref_attention`` and MLA's
+    absorbed ``mla_absorbed``, its einsums with W_uk and W_uv included)
+    computes in float64 and rounds back: the same function, rounded
+    elsewhere, so a plain-path result under it differs from the float32
+    plain path's by that path's own float32 floor.  The plain attention
+    widens its operands with ``.float()``, which would round them back to
+    float32: for the call, ``.float()`` widens to float64, so the logits
+    and the softmax are float64 too."""
     import torch
     from repro_torch.models import attention
-    plain = attention.ref_attention
+    saved = attention.ref_attention, attention.mla_absorbed
 
-    def f64(q, k, v, **kw):
-        widen, torch.Tensor.float = torch.Tensor.float, torch.Tensor.double
-        try:
-            return plain(q.double(), k.double(), v.double(),
-                         **kw).to(q.dtype)
-        finally:
-            torch.Tensor.float = widen
-    attention.ref_attention = f64
+    def wide(t):
+        return (t.double() if torch.is_tensor(t) and t.is_floating_point()
+                else t)
+
+    def f64(plain):
+        def call(*a, **kw):
+            widen, torch.Tensor.float = (torch.Tensor.float,
+                                         torch.Tensor.double)
+            try:
+                return plain(*map(wide, a), **{k: wide(v) for k, v in
+                                               kw.items()}).to(a[0].dtype)
+            finally:
+                torch.Tensor.float = widen
+        return call
+    attention.ref_attention, attention.mla_absorbed = map(f64, saved)
     try:
         yield
     finally:
-        attention.ref_attention = plain
+        attention.ref_attention, attention.mla_absorbed = saved
 
 
 def _f64_floor(rmodel, toks, lr, choices):
@@ -1224,21 +1320,26 @@ def _f64_floor(rmodel, toks, lr, choices):
 
 @contextlib.contextmanager
 def attention_fault(fault):
-    """Plant one of GEMMA2_FAULTS, STABLELM_FAULTS, STARCODER2_FAULTS or
-    WINDOW_FAULT, or the control, in the plain attention path while open
-    (None: nothing): ``no_attn_softcap`` calls the plain attention without
-    its cap, ``no_window`` without its window,
+    """Plant one of GEMMA2_FAULTS, STABLELM_FAULTS, STARCODER2_FAULTS,
+    DEEPSEEK_FAULTS or WINDOW_FAULT, or a control, in the plain attention
+    path while open (None: nothing): ``no_attn_softcap`` calls the plain
+    attention without its cap, ``no_window`` without its window,
     ``no_final_softcap`` leaves the logits uncapped, ``gqa_mod`` gives
     query head h KV head h % KH, ``kv_head_shift`` the KV head after its
     own, ``causal_shift`` lets each query see the key one position after
-    it, ``full_rotary`` rotates every dim of a head whatever the config's
-    ``rope_fraction``, and ``kv_expanded`` gives query head h KV head
-    h // (H / KH), the right one, by the same expansion of K and V to H
-    heads."""
+    it (in GQA's and MLA's plain attention), ``full_rotary`` rotates every
+    dim of a head whatever the config's ``rope_fraction``, and
+    ``kv_expanded`` gives query head h KV head h // (H / KH), the right
+    one, by the same expansion of K and V to H heads.  MLA's:
+    ``v_dim_scale`` scales the absorbed logits by v's head dim, not q/k's,
+    ``k_rope_unrotated`` skips the rotary of the one shared rope key (the
+    only rotary call on a single head in an MLA layer), and the control
+    ``mla_expanded`` attends over the cache un-absorbed, per-head K and V
+    materialised from the latent through the plain GQA attention."""
     import torch
     from repro_torch.models import attention, lm
     plain, capped = attention.ref_attention, lm.softcap
-    rotary = attention.rotary
+    rotary, absorbed = attention.rotary, attention.mla_absorbed
 
     def expanded(head_map):
         def call(q, k, v, **kw):
@@ -1262,32 +1363,56 @@ def attention_fault(fault):
     elif fault == "causal_shift":
         attention.ref_attention = lambda q, k, v, *, q_pos, **kw: plain(
             q, k, v, q_pos=q_pos + 1, **kw)
+        attention.mla_absorbed = lambda *a, q_pos, **kw: absorbed(
+            *a, q_pos=q_pos + 1, **kw)
     elif fault == "full_rotary":
         attention.rotary = lambda x, positions, *, theta, fraction: rotary(
             x, positions, theta=theta, fraction=1.0)
     elif fault == GEMMA2_CONTROL:
         attention.ref_attention = expanded(lambda h, H, KH: h // (H // KH))
+    elif fault == "v_dim_scale":
+        attention.mla_absorbed = lambda *a, wv_b, scale, **kw: absorbed(
+            *a, wv_b=wv_b, scale=wv_b.shape[-1] ** -0.5, **kw)
+    elif fault == "k_rope_unrotated":
+        attention.rotary = lambda x, positions, **kw: (
+            x if x.shape[-2] == 1 else rotary(x, positions, **kw))
+    elif fault == DEEPSEEK_CONTROL:
+        def unabsorbed(q_nope, q_rope, c_kv, k_rope, *, wk_b, wv_b, scale,
+                       q_pos, k_pos):
+            q, k, v = attention.mla_expanded(q_nope, q_rope, c_kv, k_rope,
+                                             wk_b=wk_b, wv_b=wv_b)
+            return plain(q, k, v, scale=scale, q_pos=q_pos, k_pos=k_pos,
+                         window=None, cap=None)
+        attention.mla_absorbed = unabsorbed
     elif fault is not None:
         raise ValueError(fault)
     try:
         yield
     finally:
         attention.ref_attention, lm.softcap = plain, capped
-        attention.rotary = rotary
+        attention.rotary, attention.mla_absorbed = rotary, absorbed
 
 
 @contextlib.contextmanager
 def _precap_logits(calls):
     """Record, while open, the scaled attention logits of the plain
-    attention calls numbered in ``calls`` (0 is the first; a prefill makes
-    one a layer, in layer order), before the softcap where the call has
-    one, else before the softmax, over the (query, key) pairs its masks
-    keep: their rms, largest magnitude and, for a capped call only, the
-    share past SOFTCAP_BEND, into the dict it yields, keyed by call
-    number."""
+    attention calls (GQA's ``ref_attention`` and MLA's ``mla_absorbed``)
+    numbered in ``calls`` (0 is the first; a prefill makes one a layer, in
+    layer order), before the softcap where the call has one, else before
+    the softmax, over the (query, key) pairs its masks keep: their rms,
+    largest magnitude and, for a capped call only, the share past
+    SOFTCAP_BEND, into the dict it yields, keyed by call number."""
     import torch
     from repro_torch.models import attention
     plain, stats, seen = attention.ref_attention, {}, [0]
+    absorbed = attention.mla_absorbed
+
+    def kept(x, keep):
+        return x[keep.expand_as(x)]
+
+    def keep_stats(n, x):
+        stats[n] = {"rms": float(x.square().mean().sqrt()),
+                    "max_abs": float(x.abs().max())}
 
     def recorded(q, k, v, *, scale, q_pos, k_pos, window, cap, causal=True):
         n, seen[0] = seen[0], seen[0] + 1
@@ -1303,19 +1428,33 @@ def _precap_logits(calls):
             if window is not None:
                 keep = keep & ((q_pos[:, :, None] - k_pos[:, None, :])
                                < window)
-            x = x[keep[:, None, None].expand_as(x)]
-            stats[n] = {"rms": float(x.square().mean().sqrt()),
-                        "max_abs": float(x.abs().max())}
+            x = kept(x, keep[:, None, None])
+            keep_stats(n, x)
             if cap is not None:
                 stats[n]["share_past_bend"] = float(
                     (x.abs() > SOFTCAP_BEND).float().mean())
         return plain(q, k, v, scale=scale, q_pos=q_pos, k_pos=k_pos,
                      window=window, cap=cap, causal=causal)
-    attention.ref_attention = recorded
+
+    def recorded_mla(q_nope, q_rope, c_kv, k_rope, *, wk_b, scale, q_pos,
+                     k_pos, **kw):
+        n, seen[0] = seen[0], seen[0] + 1
+        if n in calls:
+            q_abs = torch.einsum("bshk,lhk->bshl", q_nope, wk_b)
+            x = (torch.einsum("bshl,btl->bhst", q_abs.float(),
+                              c_kv.float())
+                 + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                                k_rope.float())) * scale
+            keep = ((k_pos[:, None, :] <= q_pos[:, :, None])
+                    & (k_pos[:, None, :] >= 0))
+            keep_stats(n, kept(x, keep[:, None]))
+        return absorbed(q_nope, q_rope, c_kv, k_rope, wk_b=wk_b,
+                        scale=scale, q_pos=q_pos, k_pos=k_pos, **kw)
+    attention.ref_attention, attention.mla_absorbed = recorded, recorded_mla
     try:
         yield stats
     finally:
-        attention.ref_attention = plain
+        attention.ref_attention, attention.mla_absorbed = plain, absorbed
 
 
 @contextlib.contextmanager
@@ -1340,12 +1479,14 @@ def _moe_choices():
 def _routed_as(choices):
     """While open, each MoE layer call sends every token to the experts
     that ``choices`` (``_moe_choices`` of the same calls on another path)
-    holds for it, weighted by this call's own softmax probabilities as
+    holds for it, weighted by this call's own router probabilities as
     the router weights its own choice.  A token whose own top-k differs
     (a routing flip: a near-tie that the two paths' rounding decides
     apart) is counted, one int a layer call into the list it yields.  Two
     paths compared under it then differ by what feeds the routers, not by
-    a discrete choice that one ulp can turn.  Softmax router only."""
+    a discrete choice that one ulp can turn.  Either router: the sigmoid
+    router's ``probs`` are its affinities over their sum, so normalising
+    their gather gives its own weights."""
     import torch
     from repro_torch.models import moe
     route, want, flips = moe.route, iter(choices), []
@@ -1566,11 +1707,12 @@ def _faulty_scan(fault):
     return scan
 
 
-def _planted_fault(plant, rmodel, toks, lr, fault, gate):
+def _planted_fault(plant, rmodel, toks, lr, fault, gate, choices):
     """The plain model's prefill with ``fault`` planted by ``plant`` (a
-    MODEL_CHECKS planter): its last logits' distance from the sound plain
-    path's, and whether the float32 gate rejects it."""
-    with plant(fault):
+    MODEL_CHECKS planter), routed (``_routed_as``) as ``choices`` holds,
+    as the sound plain path ``lr`` was: its last logits' distance from
+    ``lr``, and whether the float32 gate rejects it."""
+    with _routed_as(choices), plant(fault):
         lf = _prefill(rmodel, toks)
     diff = float((lf - lr).abs().max())
     same = int(lf.argmax()) == int(lr.argmax())
@@ -1612,10 +1754,9 @@ def phase_serve(out, arch):
     """The main path of ``arch``: every kernel's counts are set to 0 just
     before the serving run and read just after it."""
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.serve import run_serve
     load = _load()
-    cfg = ARCHS[arch].cfg
+    cfg = _cfg(arch)
     expected = path_kernels(cfg)
     prefills = len(set(load.prompt_lens)) + load.requests
     all_ops = _all_ops()
@@ -1624,7 +1765,7 @@ def phase_serve(out, arch):
         ops.reset_counts()                 # the main path's counts only
     res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                     max_len=MAX_LEN, load=load, transport="inproc",
-                    device="cuda")
+                    device="cuda", overrides=CUTS.get(arch))
     torch.cuda.synchronize()
     launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
     plain = {k: ops.plain_calls for k, ops in all_ops.items()}
@@ -1726,10 +1867,9 @@ def phase_parity(out, arch):
     and stablelm-1.6b serve the port's init, where phases 24 and 28 gate
     float32."""
     import resource
-    from repro_torch.configs import ARCHS
     from repro_torch.serve import all_requests, run_sequential, run_serve
     load = _load()
-    cfg = ARCHS[arch].cfg.replace(dtype="float32")
+    cfg = _cfg(arch).replace(dtype="float32")
     weights = MODEL_CHECKS[arch].get("parity", "seeded")
     reqs = all_requests(load, 2, cfg.vocab)
     prompts = {r["id"]: r["prompt"] for r in reqs}
@@ -1737,7 +1877,7 @@ def phase_parity(out, arch):
     with _engines_drawn_as(weights):
         res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                         max_len=MAX_LEN, load=load, device="cuda",
-                        dtype="float32")
+                        dtype="float32", overrides=CUTS.get(arch))
         got = {r["id"]: r["tokens"] for r in res["result"]["records"]}
         _free()           # one float32 engine on the card at a time
         seq = run_sequential(cfg, reqs, max_len=MAX_LEN, realtime=False,
@@ -1797,12 +1937,10 @@ def phase_profile(out, arch):
     share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import ARCHS
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.serve import ServeEngine
     ssd_ops.reset_counts()
-    eng = ServeEngine(ARCHS[arch].cfg, slots=4, max_len=MAX_LEN,
-                      device="cuda")
+    eng = ServeEngine(_cfg(arch), slots=4, max_len=MAX_LEN, device="cuda")
     prompt = list(range(1, 385))
     eng.warmup([len(prompt)])
     first, pcache = eng.prefill(prompt)
@@ -1821,12 +1959,12 @@ def phase_profile(out, arch):
         res[name] = {"wall_ms": wall, "device_ms": device_ms,
                      "device_busy_share": device_ms / wall,
                      "kernels": n_kernels, "top_kernels_ms_count": top}
-        if arch == GRANITE:
+        if _cfg(arch).moe is not None:
             res[name]["moe_steps"] = _moe_step_times(fn, device_ms)
         log(f"profile {arch} {name} " + json.dumps(res[name]))
     if not res["prefill_384"]["device_ms"] > 0:
         raise AssertionError("the profiler saw no device time")
-    if "ssd" in ARCHS[arch].cfg.layer_kinds():
+    if "ssd" in _cfg(arch).layer_kinds():
         # the SSD launches of this phase (warm-up, timed and profiled
         # calls), by variant
         res["ssd_launches_by_variant"] = dict(ssd_ops.launches_by_variant)
@@ -2034,11 +2172,12 @@ def replay_engine_calls(engine, calls):
             yield call, out
 
 
-def _replay(cfg, calls, fault):
+def _replay(cfg, calls, fault, near_tie):
     """Replay the recorded ``calls`` through a plain-attention engine with
     ``fault`` planted in its MoE layers (None: the control): the tokens
-    that differ from the served ones, those beyond a near-tie, and the
-    decode steps in which a layer dropped an assignment."""
+    that differ from the served ones, those beyond a near-tie (a top-2 gap
+    under ``near_tie``; 0: every differing token), and the decode steps in
+    which a layer dropped an assignment."""
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(cfg.replace(attn_impl="ref"), slots=4,
                       max_len=MAX_LEN, device="cuda")
@@ -2054,43 +2193,55 @@ def _replay(cfg, calls, fault):
             drops.clear()
     del eng
     _free()
-    bad = [d for d in differing if not d["top2_gap"] < NEAR_TIE]
+    bad = [d for d in differing if not d["top2_gap"] < near_tie]
     return {"fault": fault, "compared": compared,
             "differing": len(differing), "beyond_near_tie": len(bad),
             "first_differing": differing[:4], "rejected": bool(bad),
             "decode_steps": steps, "decode_steps_with_drops": drop_steps}
 
 
-def phase_replay(out):
-    """float32 serving of granite-moe-1b-a400m, gated by replaying the
-    served run's engine calls through a plain-attention engine with the
-    same weights, fed the served tokens: the control must pass (every
-    token equal or a near-tie) and each of MOE_FAULTS fail.  Both serve
-    the ``contraction_fan_in`` weights (``_engines_drawn_as``): at the
-    port's init float32 rounding alone decides granite's tokens (phase
-    20).  The sequential baseline decodes each request alone (T=1, where
-    top-8 of 32 never collides), so its tokens may differ where the
-    served batch dropped assignments: reported, not gated."""
-    from repro_torch.configs import ARCHS
+# phase_replay's settings, one entry an arch: the weight set that both the
+# served and the replaying engines hold (``_engines_drawn_as``), and the
+# top-2 gap under which a token may differ from the replay's (0: none may).
+# granite-moe-1b-a400m: at the port's init float32 rounding alone decides
+# its tokens (phase 20), so it serves contraction fan-in and allows
+# near-ties.  deepseek-v3-671b: phase 36 gates its float32 prefill at the
+# port's init
+REPLAYS = {
+    GRANITE: dict(weights="contraction_fan_in", near_tie=NEAR_TIE),
+    DEEPSEEK: dict(weights="seeded", near_tie=0.0),
+}
+
+
+def phase_replay(out, arch):
+    """float32 serving of ``arch``, gated by replaying the served run's
+    engine calls through a plain-attention engine with the same weights
+    (REPLAYS), fed the served tokens: the control must pass (every token
+    equal, or for granite-moe-1b-a400m a near-tie) and each of MOE_FAULTS
+    fail.  A capacity-limited MoE's output depends on the batch, so served
+    tokens need not equal the sequential baseline's, which decodes each
+    request alone (T=1, where top-8 of 32 or 256 never collides): it is
+    served and reported, not gated."""
     from repro_torch.serve import all_requests, run_sequential, run_serve
+    setting = REPLAYS[arch]
     load = _load()
-    cfg = ARCHS[GRANITE].cfg.replace(dtype="float32")
+    cfg = _cfg(arch).replace(dtype="float32")
     fa_before = _fa_variants()
-    with _engines_drawn_as("contraction_fan_in"):
+    with _engines_drawn_as(setting["weights"]):
         with record_engine_calls() as calls:
-            res = run_serve(arch=GRANITE, reduced=False, clients=2, slots=4,
+            res = run_serve(arch=arch, reduced=False, clients=2, slots=4,
                             max_len=MAX_LEN, load=load, device="cuda",
-                            dtype="float32")
+                            dtype="float32", overrides=CUTS.get(arch))
         r = res["result"]
         served = {rec["id"]: rec["tokens"] for rec in r["records"]}
         del res
         _free()
-        runs = {str(f): _replay(cfg, calls, f)
+        runs = {str(f): _replay(cfg, calls, f, setting["near_tie"])
                 for f in (None,) + MOE_FAULTS}
         seq = run_sequential(cfg, all_requests(load, 2, cfg.vocab),
                              max_len=MAX_LEN, realtime=False, device="cuda")
         _free()
-    _check_float32_simt(_fa_variants_since(fa_before), "replay granite")
+    _check_float32_simt(_fa_variants_since(fa_before), f"replay {arch}")
     seq_diff = []
     for rec in seq:
         a, b = served[rec["id"]], rec["tokens"]
@@ -2100,10 +2251,10 @@ def phase_replay(out):
                 min(len(a), len(b))), "tokens": len(b),
                 "differing": sum(x != y for x, y in zip(a, b))})
     control = runs["None"]
-    report = {"arch": GRANITE, "dtype": "float32",
-              "weights": "contraction_fan_in", "requests": len(served),
+    report = {"arch": arch, "dtype": "float32",
+              "weights": setting["weights"], "requests": len(served),
               "calls": len(calls), "served_steps": r["steps"],
-              "near_tie": NEAR_TIE, "replays": runs,
+              "near_tie": setting["near_tie"], "replays": runs,
               "sequential_requests_differing": len(seq_diff),
               "sequential_differing": seq_diff}
     log("replay " + json.dumps(report))
@@ -2117,7 +2268,7 @@ def phase_replay(out):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"replay checks failed: {failed}")
-    out[f"replay_{GRANITE}"] = report
+    out[f"replay_{arch}"] = report
 
 
 # ------------------------------------------------------------- the SSD scan
@@ -2216,7 +2367,8 @@ def phase_ssd(out):
                 row[key + "ms"] = cuda_ms(lambda: ops.ssd_fwd(
                     x, dt, a_log, b, cc, kernel=v, **kw))
                 (row[key + "device_ms"],
-                 row[key + "device_launches_recorded"]) = kernel_device_ms(
+                 row[key + "device_launches_recorded"],
+                 row[key + "device_windows"]) = kernel_device_ms(
                     lambda: ops.ssd_fwd(x, dt, a_log, b, cc, kernel=v,
                                         **kw),
                     SSD_ENTRY[v], event_ms=row[key + "ms"])
@@ -2355,8 +2507,8 @@ def phase_rglru(out):
                    ok=ok_h and ok_s, path=c.get("path", False))
         if row["path"]:
             row["ms"] = cuda_ms(lambda: ops.rglru_fwd(x, r, i, lv, h0=s0))
-            (row["device_ms"],
-             row["device_launches_recorded"]) = kernel_device_ms(
+            (row["device_ms"], row["device_launches_recorded"],
+             row["device_windows"]) = kernel_device_ms(
                 lambda: ops.rglru_fwd(x, r, i, lv, h0=s0), "rglru_fwd_kernel",
                 event_ms=row["ms"])
             row["plain_ms"] = cuda_ms(lambda: rglru_reference(x, r, i, lv,
@@ -2894,7 +3046,8 @@ PHASES = {
     20: ("granite-moe-1b-a400m model", lambda out: phase_model(out, GRANITE)),
     21: ("granite-moe-1b-a400m serve (main path)",
          lambda out: phase_serve(out, GRANITE)),
-    22: ("granite-moe-1b-a400m float32 serving", phase_replay),
+    22: ("granite-moe-1b-a400m float32 serving",
+         lambda out: phase_replay(out, GRANITE)),
     23: ("granite-moe-1b-a400m profile",
          lambda out: phase_profile(out, GRANITE)),
     24: ("gemma2-2b model", lambda out: phase_model(out, GEMMA2)),
@@ -2912,6 +3065,13 @@ PHASES = {
     34: ("starcoder2-15b parity", lambda out: phase_parity(out, STARCODER2)),
     35: ("starcoder2-15b profile",
          lambda out: phase_profile(out, STARCODER2)),
+    36: ("deepseek-v3-671b model", lambda out: phase_model(out, DEEPSEEK)),
+    37: ("deepseek-v3-671b serve (main path)",
+         lambda out: phase_serve(out, DEEPSEEK)),
+    38: ("deepseek-v3-671b float32 serving",
+         lambda out: phase_replay(out, DEEPSEEK)),
+    39: ("deepseek-v3-671b profile",
+         lambda out: phase_profile(out, DEEPSEEK)),
 }
 
 
@@ -2940,7 +3100,7 @@ def kernels_line(out):
             ("flash_attention_fwd", FA_SOURCE, FA_REPLACES, fa_rows,
              fa_timed, TOL["bfloat16"],
              f"|kernel - plain| <= {TOL['bfloat16']} * (1 + |plain|)",
-             ("B", "S", "H", "KH", "D", "window", "dtype")),
+             ("B", "S", "H", "KH", "D", "Dv", "window", "dtype")),
             ("ssd_fwd", SSD_SOURCE, SSD_REPLACES, ssd_rows, ssd_timed,
              ssd_timed["tol"] if ssd_timed else None,
              f"|kernel - plain| <= {SSD_TOL} * max|plain| (tol is that "
@@ -2975,22 +3135,23 @@ def kernels_line(out):
             # the main paths' launches by variant
             by_variant = out.get("flash_main_path_by_variant", {})
             # granite-moe-1b-a400m's shape (H=16, KH=8, D=64), gemma2-2b's
-            # (H=8, KH=4, D=256, softcap 50) and stablelm-1.6b's (H=KH=32,
-            # D=64), no window, at S=511, and starcoder2-15b's (H=48, KH=4,
-            # D=128, window 4096) at S=511 and WINDOW_S, timed as the
-            # entry's
+            # (H=8, KH=4, D=256, softcap 50), stablelm-1.6b's (H=KH=32,
+            # D=64) and deepseek-v3-671b's (H=KH=128, D=192, Dv=128), no
+            # window, at S=511, and starcoder2-15b's (H=48, KH=4, D=128,
+            # window 4096) at S=511 and WINDOW_S, timed as the entry's
             window = STARCODER2_FA_SHAPE["window"]
             for key, arch, S, w in (
                     ("granite", GRANITE, TIMED[0], None),
                     ("gemma2", GEMMA2, TIMED[0], None),
                     ("stablelm", STABLELM, TIMED[0], None),
                     ("starcoder2", STARCODER2, TIMED[0], window),
-                    ("starcoder2_long", STARCODER2, WINDOW_S, window)):
+                    ("starcoder2_long", STARCODER2, WINDOW_S, window),
+                    ("deepseek", DEEPSEEK, TIMED[0], None)):
                 g = next((r for r in rows if r["path"] == arch
                           and r["S"] == S and r["window"] == w), None)
                 entry[key] = g and {
                     k: g.get(k) for k in (
-                        "B", "S", "H", "KH", "D", "window", "softcap",
+                        "B", "S", "H", "KH", "D", "Dv", "window", "softcap",
                         "dtype", "variant", "max_abs_err", "ms", "device_ms",
                         "simt_ms", "simt_device_ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "library",

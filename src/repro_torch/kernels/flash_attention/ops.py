@@ -3,8 +3,11 @@
 The counterpart of ``repro.kernels.flash_attention.ops``.  The model's
 layout is (B, S, H, D); the kernel indexes (B, H, S, D) through each
 tensor's strides, so the model's tensors reach it as transposed views and
-its output is written straight into a (B, S, H, D) buffer.  On CUDA tensors
-:func:`flash_attention` launches a hand-written Hopper kernel
+its output is written straight into a (B, S, H, Dv) buffer.  q and k have
+head dim D, v (and the output) its own, Dv, as in the TPU kernel: the
+(D, Dv) pair must be one of :data:`HEAD_DIM_PAIRS`, for which both kernels
+are built (MLA's (192, 128) among them); any other pair raises.  On CUDA
+tensors :func:`flash_attention` launches a hand-written Hopper kernel
 (``csrc/flash_attention_fwd.cu``) on the current stream and counts the
 launch in :data:`kernel_launches` and :data:`launches_by_variant`; on CPU
 tensors it runs the plain version (:mod:`.ref`) and counts
@@ -12,9 +15,9 @@ tensors it runs the plain version (:mod:`.ref`) and counts
 kernel does not take raises.
 
 Two kernels compute it, and :func:`variant` picks one from the inputs
-alone: ``"mma_bf16"`` (bf16 tensor cores) for bf16 inputs with D in
-:data:`HEAD_DIMS` and 16-byte aligned pointers and row strides, which is
-every served and trained path; ``"simt"`` (float32 FMAs) for every other
+alone: ``"mma_bf16"`` (bf16 tensor cores) for bf16 inputs with (D, Dv) in
+:data:`HEAD_DIM_PAIRS` and 16-byte aligned pointers and row strides, which
+is every served and trained path; ``"simt"`` (float32 FMAs) for every other
 call, float32 included.  A launch that fails raises; no other variant is
 tried.
 
@@ -47,11 +50,17 @@ launches_by_variant = dict.fromkeys(VARIANTS, 0)
 backward_recomputes = 0
 _count_lock = threading.Lock()
 
-HEAD_DIMS = (32, 64, 128, 256)
+#: the (D, Dv) pairs (q/k head dim, v head dim) both kernels are built for,
+#: as ``FA_PAIRS`` in ``csrc/flash_attention_fwd.cu`` lists them (a CPU
+#: test parses that table and holds the two equal): equal
+#: widths, deepseek-v3's MLA (qk 128 + 64 rope, v 128) and its reduced
+#: config's (32 + 16, 32)
+HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+                  (48, 32))
 #: the tensor-core kernel's rule, as its C entry ``flash_attention_fwd_mma``
-#: checks it: bf16 q, k, v and out, D in HEAD_DIMS, and every pointer and
-#: (b, h, s) stride a multiple of MMA_ALIGN bytes (its 16-byte ``cp.async``
-#: row loads)
+#: checks it: bf16 q, k, v and out, (D, Dv) in HEAD_DIM_PAIRS, and every
+#: pointer and (b, h, s) stride a multiple of MMA_ALIGN bytes (its 16-byte
+#: ``cp.async`` row loads)
 MMA_DTYPE, MMA_ALIGN = torch.bfloat16, 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -87,11 +96,12 @@ def aligned(*tensors: torch.Tensor) -> bool:
                for t in tensors)
 
 
-def variant(dtype: torch.dtype, D: int, aligned: bool) -> str:
+def variant(dtype: torch.dtype, D: int, Dv: int, aligned: bool) -> str:
     """The kernel a call launches, from its inputs alone: ``"mma_bf16"``
-    for :data:`MMA_DTYPE` with D in :data:`HEAD_DIMS` and ``aligned``
-    pointers and row strides (see :func:`aligned`), else ``"simt"``."""
-    if dtype == MMA_DTYPE and D in HEAD_DIMS and aligned:
+    for :data:`MMA_DTYPE` with (D, Dv) in :data:`HEAD_DIM_PAIRS` and
+    ``aligned`` pointers and row strides (see :func:`aligned`), else
+    ``"simt"``."""
+    if dtype == MMA_DTYPE and (D, Dv) in HEAD_DIM_PAIRS and aligned:
         return "mma_bf16"
     return "simt"
 
@@ -99,17 +109,18 @@ def variant(dtype: torch.dtype, D: int, aligned: bool) -> str:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_fwd")
     if lib.flash_attention_fwd.argtypes is None:
-        # q, k, v, o, strides, B, H, KH, S, D, scale, causal, window,
+        # q, k, v, o, strides, B, H, KH, S, D, Dv, scale, causal, window,
         # softcap; then the SIMT entry's dtype, and the stream
         args = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                + [ctypes.c_int] * 5
+                + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float])
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_fwd_mma.argtypes = args + [ctypes.c_void_p]
         lib.flash_attention_fwd_mma.restype = ctypes.c_int
-        lib.flash_attention_fwd_mma_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_fwd_mma_smem_bytes.argtypes = [ctypes.c_int,
+                                                           ctypes.c_int]
         lib.flash_attention_fwd_mma_smem_bytes.restype = ctypes.c_int
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_fwd.argtypes = args + [ctypes.c_int,
@@ -117,21 +128,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def mma_smem_bytes(D: int) -> int:
+def mma_smem_bytes(D: int, Dv: int) -> int:
     """Dynamic shared memory (bytes) a launch of the tensor-core kernel at
-    head dim D asks for."""
-    return _lib().flash_attention_fwd_mma_smem_bytes(D)
+    head dims (D, Dv) asks for."""
+    return _lib().flash_attention_fwd_mma_smem_bytes(D, Dv)
 
 
 def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel :func:`variant` picks.  q: (B, H, S, D); k/v:
-    (B, KH, S, D), CUDA tensors of one dtype (float32 or bfloat16), any
-    strides with a unit-stride last axis.  Writes ``out`` (a new contiguous
-    tensor if None, else q's shape, dtype and device with a unit-stride
-    last axis) and returns it."""
+    """Launch the kernel :func:`variant` picks.  q: (B, H, S, D); k:
+    (B, KH, S, D); v: (B, KH, S, Dv), with (D, Dv) in
+    :data:`HEAD_DIM_PAIRS`; CUDA tensors of one dtype (float32 or
+    bfloat16), any strides with a unit-stride last axis.  Writes ``out``
+    (B, H, S, Dv) (a new contiguous tensor if None, else of that shape and
+    q's dtype and device with a unit-stride last axis) and returns it."""
     return _launch(None, q, k, v, scale=scale, causal=causal, window=window,
                    softcap=softcap, out=out)
 
@@ -142,34 +154,37 @@ def _launch(kind: Optional[str], q, k, v, *, scale: float, causal: bool,
     """:func:`flash_attention_fwd` with the variant ``kind`` named (None:
     the one :func:`variant` picks), so that the SIMT kernel can be timed on
     inputs the tensor-core kernel takes; the model path never names one."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_fwd: q, k, v must be on one CUDA "
-                         f"device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention_fwd: q, k, v must share a dtype of "
                         f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or v.shape[:3] != k.shape[:3]):
         raise ValueError(f"flash_attention_fwd: bad shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, D = q.shape
-    KH = k.shape[1]
+    KH, Dv = k.shape[1], v.shape[3]
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or H % KH:
         raise ValueError(f"flash_attention_fwd: k/v {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {D} not in "
-                         f"{HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention_fwd: head dims (D, Dv) = "
+                         f"{(D, Dv)} not in {HEAD_DIM_PAIRS}")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_fwd: q, k, v must be on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    shape = (B, H, S, Dv)
     if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    elif (out.shape != q.shape or out.dtype != q.dtype
+        out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    elif (tuple(out.shape) != shape or out.dtype != q.dtype
           or out.device != q.device):
         raise ValueError(f"flash_attention_fwd: out {tuple(out.shape)} "
-                         f"{out.dtype} {out.device} does not match q")
+                         f"{out.dtype} {out.device} is not {shape} of q's "
+                         f"dtype and device")
     if any(t.stride(3) != 1 for t in (q, k, v, out)):
         raise ValueError("flash_attention_fwd: the head-dim axis of q, k, v "
                          "and out must have stride 1")
-    chosen = variant(q.dtype, D, aligned(q, k, v, out))
+    chosen = variant(q.dtype, D, Dv, aligned(q, k, v, out))
     if kind is None:
         kind = chosen
     elif kind not in VARIANTS or (kind == "mma_bf16" and chosen != kind):
@@ -181,7 +196,8 @@ def _launch(kind: Optional[str], q, k, v, *, scale: float, causal: bool,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, B, H, KH, S, D, float(scale), int(bool(causal)),
+                strides, B, H, KH, S, D, Dv, float(scale),
+                int(bool(causal)),
                 int(window) if window is not None else 0,
                 float(softcap) if softcap is not None else 0.0)
         if kind == "mma_bf16":
@@ -197,10 +213,12 @@ def _launch(kind: Optional[str], q, k, v, *, scale: float, causal: bool,
 
 
 def _forward(q, k, v, scale, causal, window, softcap):
-    """(B,S,H,D) in and out: the kernel on CUDA, the plain version on CPU."""
+    """(B,S,H,D) in, (B,S,H,Dv) out: the kernel on CUDA, the plain version
+    on CPU."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if q.is_cuda:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                          device=q.device)
         flash_attention_fwd(qt, kt, vt, scale=scale, causal=causal,
                             window=window, softcap=softcap,
                             out=out.transpose(1, 2))
@@ -238,7 +256,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None):
-    """q: (B, S, H, D); k/v: (B, S, KH, D) -> (B, S, H, D)."""
+    """q: (B, S, H, D); k: (B, S, KH, D); v: (B, S, KH, Dv) ->
+    (B, S, H, Dv)."""
     return _FlashAttention.apply(q, k, v, scale, causal, window, softcap)
 
 

@@ -7,12 +7,15 @@ over it; here a Python loop walks it).  Parameter and cache trees keep the
 reference's paths and layouts, so :mod:`repro_torch.bridge` copies weights
 leaf for leaf.
 
-Mixers ported so far: ``attn`` and ``local`` (GQA, :mod:`.attention`),
-``ssd`` (Mamba-2, :mod:`.mamba2`) and ``rglru`` (the RecurrentGemma
-recurrent block, :mod:`.rglru`); a layer's MLP half is a dense MLP, a
-Mixture-of-Experts layer (:mod:`.moe`; ``dense_big`` for an MoE model's
-leading dense layers) or, for ``mlp == "none"`` (Mamba-2), absent.  Other
-mixers (MLA), MTP and encoder-decoder models raise NotImplementedError.
+Mixers: ``attn`` and ``local`` (GQA) and ``mla`` (DeepSeek-V3's latent
+attention), all in :mod:`.attention`, ``ssd`` (Mamba-2, :mod:`.mamba2`) and
+``rglru`` (the RecurrentGemma recurrent block, :mod:`.rglru`); a layer's
+MLP half is a dense MLP, a Mixture-of-Experts layer (:mod:`.moe`;
+``dense_big`` for an MoE model's leading dense layers) or, for
+``mlp == "none"`` (Mamba-2), absent.  DeepSeek-V3's multi-token prediction
+(``mtp_depth``) adds one layer of the last layer's kind to the loss; the
+serving path never reads it.  Encoder-decoder models raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -105,6 +108,7 @@ def mlp_apply(p, x, cfg: ModelCfg):
 MIXER_SPECS = {
     "attn": attn.gqa_specs,
     "local": attn.gqa_specs,
+    "mla": attn.mla_specs,
     "ssd": m2.mamba2_specs,
     "rglru": rg.rglru_specs,
 }
@@ -143,6 +147,9 @@ def mixer_apply(kind: str, p, x, *, cfg: ModelCfg, positions, cache,
     if kind in ("attn", "local"):
         return attn.gqa_apply(p, x, cfg=cfg, kind=kind, positions=positions,
                               cache=cache, fresh_cache=fresh_cache)
+    if kind == "mla":
+        return attn.mla_apply(p, x, cfg=cfg, positions=positions,
+                              cache=cache, fresh_cache=fresh_cache)
     if kind == "ssd":
         return m2.mamba2_apply(p, x, cfg=cfg, cache=cache)
     if kind == "rglru":
@@ -178,6 +185,8 @@ def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
 def mixer_cache_spec(cfg: ModelCfg, kind: str, batch: int, max_len: int):
     if kind in ("attn", "local"):
         return attn.gqa_cache_spec(cfg, kind, batch, max_len)
+    if kind == "mla":
+        return attn.mla_cache_spec(cfg, batch, max_len)
     if kind == "ssd":
         return m2.mamba2_cache_spec(cfg, batch)
     if kind == "rglru":
@@ -227,13 +236,13 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------- the model
 class TransformerLM(nn.Module):
     """Decoder-only LM (the dense attention families, Mamba-2,
-    RecurrentGemma and Granite-MoE)."""
+    RecurrentGemma, Granite-MoE and DeepSeek-V3)."""
 
     def __init__(self, cfg: ModelCfg):
         super().__init__()
-        if cfg.encdec or cfg.mtp_depth:
+        if cfg.encdec:
             raise NotImplementedError(_LATER.format(
-                "encoder-decoder and MTP models"))
+                "encoder-decoder models"))
         self.cfg = cfg
         self.descs = self._descs()
         self.segments = build_segments(self.descs)
@@ -272,6 +281,13 @@ class TransformerLM(nn.Module):
                 ls = layer_specs(cfg, desc)
                 seg[f"u{ui}"] = stack_spec(ls, reps) if reps > 1 else ls
             specs[f"seg{si}"] = seg
+        if cfg.mtp_depth:
+            specs["mtp"] = {
+                "proj": P((2 * cfg.d_model, cfg.d_model), ("mlp", "embed")),
+                "norm_h": norm_specs(cfg),
+                "norm_e": norm_specs(cfg),
+                "layer": layer_specs(cfg, self.descs[-1]),
+            }
         return specs
 
     def init(self, generator: torch.Generator, device=None
@@ -363,7 +379,27 @@ class TransformerLM(nn.Module):
         x = self.embed(tokens)
         h, _, aux = self.forward(x, positions=self._positions(tokens))
         ce = _xent(self.logits(h), batch["labels"])
-        return ce + 0.001 * aux, {"ce": ce, "aux": aux}
+        loss, metrics = ce + 0.001 * aux, {"ce": ce, "aux": aux}
+        if self.cfg.mtp_depth:
+            mtp = self._mtp_loss(h, tokens, batch["labels"])
+            loss, metrics["mtp"] = loss + 0.3 * mtp, mtp
+        return loss, metrics
+
+    def _mtp_loss(self, h, tokens, labels):
+        """DeepSeek-V3 multi-token prediction (depth 1): predict token
+        t + 2 from the trunk's final state at t joined with the embedding
+        of token t + 1, through one layer of the last layer's kind (its
+        MoE aux loss left out, as in the reference)."""
+        cfg, mp = self.cfg, self.params["mtp"]
+        h_in = norm_apply(mp["norm_h"], h[:, :-1], cfg)
+        e_in = norm_apply(mp["norm_e"], self.embed(tokens[:, 1:]), cfg)
+        x = torch.cat([h_in, e_in], dim=-1) @ mp["proj"]
+        x2, _, _ = layer_apply(mp["layer"].to_dict(), x, cfg=cfg,
+                               desc=self.descs[-1],
+                               positions=self._positions(tokens[:, 1:]),
+                               cache=None)
+        lg = self.logits(norm_apply(self.params["final_norm"], x2, cfg))
+        return _xent(lg[:, :-1], labels[:, 2:])
 
     # -- serving -----------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int):
@@ -399,7 +435,8 @@ class TransformerLM(nn.Module):
         if attn and bool((torch.stack([u["pos"].max() for u in attn])
                           >= 0).any()):
             raise ValueError("prefill needs empty caches (init_cache)")
-        L = min((u["k"].shape[-3] for u in attn), default=None)
+        # every attention cache (GQA K/V, MLA latent) has pos (..., B, L)
+        L = min((u["pos"].shape[-1] for u in attn), default=None)
         if L is not None and tokens.shape[1] > L:
             raise ValueError(f"{tokens.shape[1]} tokens do not fit an "
                              f"attention cache of length {L}")

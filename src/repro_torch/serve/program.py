@@ -358,16 +358,20 @@ class ServeProgram:
 # ----------------------------------------------------------------- factories
 def serve_program(arch: str = "gemma3-1b", reduced: bool = True,
                   dtype: Optional[str] = None,
+                  overrides: Optional[Dict[str, Any]] = None,
                   **kwargs: Any) -> ServeProgram:
-    """Module-level factory for ``edat.deferred``.  ``dtype`` overrides
-    the config's compute dtype (``"float32"``, ``"bfloat16"``); other
-    keywords go to :class:`ServeProgram` (``device``, ``params``, ...)."""
+    """Module-level factory for ``edat.deferred``.  ``overrides``
+    replaces config fields (a depth cut such as
+    ``{"n_layers": 4, "mtp_depth": 0}``); ``dtype`` is one more of them,
+    the compute dtype (``"float32"``, ``"bfloat16"``); other keywords go
+    to :class:`ServeProgram` (``device``, ``params``, ...)."""
     from repro_torch.configs import ARCHS, reduce_cfg
     spec = ARCHS[arch]
     cfg = reduce_cfg(spec.cfg) if reduced else spec.cfg
+    fields = dict(overrides or {})
     if dtype is not None:
-        cfg = cfg.replace(dtype=dtype)
-    return ServeProgram(cfg, **kwargs)
+        fields["dtype"] = dtype
+    return ServeProgram(cfg.replace(**fields), **kwargs)
 
 
 def run_serve(*, arch: str = "gemma3-1b", reduced: bool = True,
@@ -381,6 +385,7 @@ def run_serve(*, arch: str = "gemma3-1b", reduced: bool = True,
               seed: int = 0,
               device=None,
               dtype: Optional[str] = None,
+              overrides: Optional[Dict[str, Any]] = None,
               params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """One serving round end to end: spin up a Session (server rank 0 +
     ``clients`` loadgen ranks), run the open-loop load to completion,
@@ -391,11 +396,11 @@ def run_serve(*, arch: str = "gemma3-1b", reduced: bool = True,
     process spawn, model build and warm-up do not pollute tokens/s.
 
     ``device`` defaults to the card (RuntimeError without one, raised
-    here before any process spawns), ``dtype`` overrides the config's,
-    ``params`` serves a reference parameter tree of numpy arrays instead
-    of the seeded init; over sockets it is pickled to every rank's
-    process, so at full width leave it out and let the server seed its
-    own."""
+    here before any process spawns), ``dtype`` overrides the config's, as
+    ``overrides`` does its other fields (a depth cut), ``params`` serves a
+    reference parameter tree of numpy arrays instead of the seeded init;
+    over sockets it is pickled to every rank's process, so at full width
+    leave it out and let the server seed its own."""
     device = resolve_device(device)
     load = load or LoadSpec()
     with edat.Session(1 + clients, procs=procs, transport=transport,
@@ -405,7 +410,8 @@ def run_serve(*, arch: str = "gemma3-1b", reduced: bool = True,
         s.run(edat.deferred(serve_program, arch=arch, reduced=reduced,
                             slots=slots, max_len=max_len, load=load,
                             queue_bound=queue_bound, seed=seed,
-                            device=device, dtype=dtype, params=params))
+                            device=device, dtype=dtype,
+                            overrides=overrides, params=params))
         wall = time.monotonic() - t0
         res = s.gather()
         stats = dict(s.stats)

@@ -8,6 +8,9 @@ and the gradient.  The CUDA kernel is held to the plain version by
 ``test_torch_kernels_gpu.py`` (skipped without a card) and by
 ``chip_smoke.py``.
 """
+import re
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,7 +24,10 @@ import numpy as np                                           # noqa: E402
 
 from repro.kernels.flash_attention import ops as jfa         # noqa: E402
 from repro.kernels.flash_attention import ref as jref        # noqa: E402
+from repro_torch.configs import ARCHS, reduce_cfg            # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tfa   # noqa: E402
+
+DEEPSEEK = "deepseek-v3-671b"
 
 # the reference's FA_CASES (tests/test_kernels.py): (S, H, KH, D, window,
 # softcap, dtype name)
@@ -43,10 +49,10 @@ TAIL_CASES = [
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
-def _inputs(S, H, KH, D, dtype, B=2, seed=0):
+def _inputs(S, H, KH, D, dtype, B=2, seed=0, Dv=None):
     rng = np.random.default_rng(seed)
-    arrs = [rng.standard_normal((B, S, h, D), dtype=np.float32)
-            for h in (H, KH, KH)]
+    arrs = [rng.standard_normal((B, S, h, d), dtype=np.float32)
+            for h, d in ((H, D), (KH, D), (KH, Dv or D))]
     jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
     return jx, tx
@@ -143,33 +149,81 @@ def test_launch_counter_loses_no_update_under_threads():
 
 
 # ------------------------------------------------- the kernel's two variants
-@pytest.mark.parametrize("dtype,D,aligned,want", [
-    (torch.bfloat16, D, True, "mma_bf16") for D in tfa.HEAD_DIMS] + [
-    (torch.float32, 256, True, "simt"),
-    (torch.float32, 64, True, "simt"),
-    (torch.bfloat16, 256, False, "simt"),
-    (torch.bfloat16, 64, False, "simt"),
-    (torch.bfloat16, 48, True, "simt"),
+def test_head_dim_pairs():
+    """Both kernels are built for the equal widths the served and trained
+    paths take and for MLA's q/k and v head dims: full-width deepseek-v3's
+    (128 + 64, 128) and its reduced config's (32 + 16, 32)."""
+    assert tfa.HEAD_DIM_PAIRS == ((32, 32), (64, 64), (128, 128), (256, 256),
+                                  (192, 128), (48, 32))
+    for cfg, want in ((ARCHS[DEEPSEEK].cfg, (192, 128)),
+                      (reduce_cfg(ARCHS[DEEPSEEK].cfg), (48, 32))):
+        m = cfg.mla
+        assert (m.nope_dim + m.rope_dim, m.v_dim) == want
+
+
+def test_head_dim_pairs_match_the_cuda_source():
+    """HEAD_DIM_PAIRS is the pair table ``FA_PAIRS`` of the CUDA source
+    instantiates both kernels from, pair for pair and in order: a pair
+    added to one and not the other fails here, not first on the card."""
+    src = (Path(tfa.__file__).resolve().parents[2] / "csrc"
+           / "flash_attention_fwd.cu").read_text()
+    table = re.search(r"#define FA_PAIRS\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                      src).group(1)
+    pairs = tuple((int(d), int(dv))
+                  for d, dv in re.findall(r"X\((\d+),\s*(\d+)\)", table))
+    assert pairs == tfa.HEAD_DIM_PAIRS
+
+
+@pytest.mark.parametrize("dtype,D,Dv,aligned,want", [
+    (torch.bfloat16, D, Dv, True, "mma_bf16")
+    for D, Dv in tfa.HEAD_DIM_PAIRS] + [
+    (torch.float32, 256, 256, True, "simt"),
+    (torch.float32, 64, 64, True, "simt"),
+    (torch.float32, 192, 128, True, "simt"),
+    (torch.bfloat16, 256, 256, False, "simt"),
+    (torch.bfloat16, 64, 64, False, "simt"),
+    (torch.bfloat16, 192, 128, False, "simt"),
+    (torch.bfloat16, 48, 48, True, "simt"),
+    (torch.bfloat16, 192, 192, True, "simt"),
+    (torch.bfloat16, 128, 192, True, "simt"),
 ])
-def test_variant_rule(dtype, D, aligned, want):
-    assert tfa.variant(dtype, D, aligned) == want
+def test_variant_rule(dtype, D, Dv, aligned, want):
+    assert tfa.variant(dtype, D, Dv, aligned) == want
+
+
+@pytest.mark.parametrize("D,Dv", [(48, 48), (192, 192), (128, 192),
+                                  (256, 128), (96, 64)])
+def test_unlisted_head_dim_pair_raises(D, Dv):
+    """A (D, Dv) pair outside HEAD_DIM_PAIRS raises before any launch,
+    whatever the device; a listed pair on the CPU is refused for its
+    device."""
+    q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
+    v = torch.zeros(1, 2, 8, Dv, dtype=torch.bfloat16)
+    before = dict(tfa.launches_by_variant)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention_fwd(q, q, v, scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q[..., :48], q[..., :48], v[..., :32],
+                                scale=1.0)
+    assert tfa.launches_by_variant == before
 
 
 def test_aligned_reads_model_layout_views():
     """The model hands (B, S, H, D) tensors over as transposed views: their
     (b, h, s) strides are read, whatever the memory order."""
-    for D in tfa.HEAD_DIMS:
+    for D, Dv in tfa.HEAD_DIM_PAIRS:
         x = torch.zeros(2, 17, 4, D, dtype=torch.bfloat16)
         view = x.transpose(1, 2)                 # (B, H, S, D), strided
         assert not view.is_contiguous() and tfa.aligned(view)
-        assert tfa.variant(view.dtype, D, tfa.aligned(view)) == "mma_bf16"
+        assert tfa.variant(view.dtype, D, Dv,
+                           tfa.aligned(view)) == "mma_bf16"
         # a head slice of a wider projection keeps 16-byte rows
         wide = torch.zeros(2, 17, 12, D, dtype=torch.bfloat16)
         assert tfa.aligned(wide[:, :, 4:8].transpose(1, 2))
     # rows of 68 bf16 values (136 bytes) are not 16-byte aligned
     padded = torch.zeros(1, 9, 2, 68, dtype=torch.bfloat16)[..., :64]
     assert not tfa.aligned(padded.transpose(1, 2))
-    assert tfa.variant(torch.bfloat16, 64,
+    assert tfa.variant(torch.bfloat16, 64, 64,
                        tfa.aligned(padded.transpose(1, 2))) == "simt"
     # a pointer 2 bytes past a 16-byte boundary
     buf = torch.zeros(2 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)
@@ -178,7 +232,7 @@ def test_aligned_reads_model_layout_views():
     # float32 rows of 36 values (144 bytes) are aligned; the rule's dtype
     # still sends them to the SIMT kernel
     f32 = torch.zeros(1, 5, 2, 36).transpose(1, 2)
-    assert tfa.aligned(f32) and tfa.variant(f32.dtype, 36, True) == "simt"
+    assert tfa.aligned(f32) and tfa.variant(f32.dtype, 36, 36, True) == "simt"
 
 
 def test_no_public_variant_keyword():
@@ -203,22 +257,23 @@ def test_reset_counts_clears_launches_by_variant():
 
 def _mma_bf16_emulated(q, k, v, *, scale, window=None, softcap=None,
                        tile=64):
-    """The tensor-core kernel's arithmetic in plain torch, (B, H, S, D)
-    bf16 in: 64-row q and kv tiles, float32 logits and running max m, p
-    added into l in float32 and then rounded to bf16 for p.v, float32
-    accumulation, acc / max(l, 1e-30) rounded to bf16.  Dead tiles are
-    skipped as the kernel skips them."""
+    """The tensor-core kernel's arithmetic in plain torch, q and k
+    (B, H|KH, S, D), v (B, KH, S, Dv), bf16 in: 64-row q and kv tiles,
+    float32 logits and running max m, p added into l in float32 and then
+    rounded to bf16 for p.v, float32 accumulation, acc / max(l, 1e-30)
+    rounded to bf16.  Dead tiles are skipped as the kernel skips them."""
     B, H, S, D = q.shape
+    Dv = v.shape[-1]
     g = H // k.shape[1]
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
-    out = torch.empty_like(q)
+    out = torch.empty((B, H, S, Dv), dtype=q.dtype)
     for q0 in range(0, S, tile):
         rows = torch.arange(q0, min(q0 + tile, S))
         qf = q[:, :, rows].float()
         m = torch.full((B, H, len(rows), 1), -1e30)
         l = torch.zeros((B, H, len(rows), 1))
-        acc = torch.zeros((B, H, len(rows), D))
+        acc = torch.zeros((B, H, len(rows), Dv))
         kt_lo = max(0, q0 - window + 1) // tile if window else 0
         for k0 in range(kt_lo * tile, rows[-1].item() + 1, tile):
             keys = torch.arange(k0, min(k0 + tile, S))
@@ -239,27 +294,33 @@ def _mma_bf16_emulated(q, k, v, *, scale, window=None, softcap=None,
     return out
 
 
-# (S, H, KH, D, window, softcap): the bf16 kernel's tiles at every head
-# dim, ragged tails, and the served and trained paths' shapes (gemma3-1b's
-# H=4, KH=1, D=256, window 512 or none; recurrentgemma-9b's H=16, window
-# 2048; granite-moe-1b-a400m's H=16, KH=8, D=64), cut to B=1 where large
+# (S, H, KH, D, Dv, window, softcap): the bf16 kernel's tiles at every
+# head dim pair, ragged tails, and the served and trained paths' shapes
+# (gemma3-1b's H=4, KH=1, D=256, window 512 or none; recurrentgemma-9b's
+# H=16, window 2048; granite-moe-1b-a400m's H=16, KH=8, D=64;
+# deepseek-v3-671b's MLA, KH = H, D=192, Dv=128, and its reduced config's
+# (48, 32)), cut to B=1 and fewer heads where large
 EMU_CASES = [
-    (1, 4, 1, 256, 512, None), (17, 2, 1, 32, None, None),
-    (65, 4, 2, 64, None, None), (100, 2, 1, 128, None, None),
-    (130, 2, 1, 256, 64, 50.0), (511, 4, 1, 256, 512, None),
-    (511, 4, 1, 256, None, None), (300, 16, 1, 256, 2048, None),
-    (300, 16, 8, 64, None, None),
+    (1, 4, 1, 256, 256, 512, None), (17, 2, 1, 32, 32, None, None),
+    (65, 4, 2, 64, 64, None, None), (100, 2, 1, 128, 128, None, None),
+    (130, 2, 1, 256, 256, 64, 50.0), (511, 4, 1, 256, 256, 512, None),
+    (511, 4, 1, 256, 256, None, None), (300, 16, 1, 256, 256, 2048, None),
+    (300, 16, 8, 64, 64, None, None),
+    (65, 4, 4, 48, 32, None, None), (100, 4, 4, 48, 32, None, None),
+    (1, 8, 8, 192, 128, None, None), (130, 8, 8, 192, 128, None, None),
+    (511, 8, 8, 192, 128, None, None),
 ]
 
 
-@pytest.mark.parametrize("S,H,KH,D,window,softcap", EMU_CASES)
-def test_mma_bf16_rounding_within_kernel_gate(S, H, KH, D, window,
+@pytest.mark.parametrize("S,H,KH,D,Dv,window,softcap", EMU_CASES)
+def test_mma_bf16_rounding_within_kernel_gate(S, H, KH, D, Dv, window,
                                               softcap):
     """The tensor-core kernel rounds p to bf16 before it is normalised
     (as the TPU kernel does), the plain version after: the emulated
     kernel must sit within the card's bf16 gate, 2e-2 * (1 + |plain|), of
-    the reference's oracle on the same inputs."""
-    (jq, jk, jv), _ = _inputs(S, H, KH, D, "bfloat16", B=1, seed=S + D)
+    the reference's oracle on the same inputs, v at its own head dim."""
+    (jq, jk, jv), _ = _inputs(S, H, KH, D, "bfloat16", B=1, seed=S + D,
+                              Dv=Dv)
     kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
     want = jref.attention_ref(*(jnp.swapaxes(t, 1, 2) for t in (jq, jk, jv)),
                               **kw)

@@ -74,8 +74,8 @@ def test_flash_kernel_matches_plain(cuda, S, H, KH, D, window, softcap,
 # tiles and 64-row block tiles, with and without a window; softcap 50 at
 # D=256 (gemma2's); and the SIMT kernel on the same bf16 inputs
 MMA_S = (1, 15, 16, 17, 63, 64, 65, 100, 511)
-MMA_CASES = ([(D, S, w, None) for D in tfa.HEAD_DIMS for S in MMA_S
-              for w in (512, None)]
+MMA_CASES = ([(D, S, w, None) for D, Dv in tfa.HEAD_DIM_PAIRS if D == Dv
+              for S in MMA_S for w in (512, None)]
              + [(256, S, None, 50.0) for S in MMA_S])
 
 
@@ -91,6 +91,11 @@ STABLELM_CASES = (1, 65, 100, 511)
 # where the window masks keys for the last 512 queries
 STARCODER2_CASES = ([(S, 4096) for S in (1, 65, 100, 511)]
                     + [(511, 128), (4608, 4096)])
+# MLA's head dims, v's its own: deepseek-v3-671b's prefill shape (B=1, 128
+# heads, K and V per head, so KH = H, D=192, Dv=128, no window) and its
+# reduced config's (4 heads, D=48, Dv=32, here with B=2 and a window too)
+MLA_CASES = ([(1, 128, 128, 192, 128, None, S) for S in MMA_S]
+             + [(2, 4, 4, 48, 32, w, S) for S in MMA_S for w in (64, None)])
 
 
 @pytest.mark.gpu
@@ -121,15 +126,49 @@ def test_flash_variants_match_plain_at_starcoder2_shape(cuda, S, window):
                           seed=S * 19 + 128)
 
 
-def _variants_match_plain(cuda, B, S, H, KH, D, window, softcap, seed):
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,D,Dv,window,S", MLA_CASES)
+def test_flash_variants_match_plain_at_mla_head_dims(cuda, B, H, KH, D, Dv,
+                                                     window, S):
+    _variants_match_plain(cuda, B, S, H, KH, D, window, None,
+                          seed=S * 23 + D, Dv=Dv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,D,Dv,window,S", [
+    c for c in MLA_CASES if c[-1] in (1, 17, 100, 511)])
+def test_flash_kernel_matches_plain_at_mla_head_dims_float32(
+        cuda, B, H, KH, D, Dv, window, S):
+    """float32 at MLA's head dims takes the SIMT kernel through the
+    public wrapper, in the model's layout, within 2e-5 of the plain
+    version; the output has v's head dim."""
+    rng = np.random.default_rng(S * 29 + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, d),
+                                                    dtype=np.float32))
+               .to(cuda) for h, d in ((H, D), (KH, D), (KH, Dv)))
+    kw = dict(scale=D ** -0.5, window=window)
+    before = dict(tfa.launches_by_variant)
+    out = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches_by_variant == dict(before,
+                                           simt=before["simt"] + 1)
+    assert out.shape == (B, S, H, Dv)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               tfa.attention_ref(q, k, v, **kw).cpu().numpy(),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def _variants_match_plain(cuda, B, S, H, KH, D, window, softcap, seed,
+                          Dv=None):
     """Both flash variants through the private ``_launch`` on bf16 inputs
-    in the model's layout (transposed views of (B, S, H, D)), each held
-    to the plain version at the bf16 tolerance."""
+    in the model's layout (transposed views of (B, S, H, D), v's head dim
+    Dv, D where None), each held to the plain version at the bf16
+    tolerance."""
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D),
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, d),
                                                     dtype=np.float32))
                .to(device=cuda, dtype=torch.bfloat16).transpose(1, 2)
-               for h in (H, KH, KH))
+               for h, d in ((H, D), (KH, D), (KH, Dv or D)))
     kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=softcap)
     ref = tfa.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
                             **kw).transpose(1, 2).float().cpu().numpy()
@@ -152,7 +191,7 @@ def test_flash_mma_refuses_float32_and_misaligned_rows(cuda):
     # rows of 68 bf16 values: not 16-byte aligned, so the SIMT kernel runs
     x = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)
     qv = x[..., :64].transpose(1, 2)
-    assert tfa.variant(qv.dtype, 64, tfa.aligned(qv)) == "simt"
+    assert tfa.variant(qv.dtype, 64, 64, tfa.aligned(qv)) == "simt"
     before = dict(tfa.launches_by_variant)
     tfa.flash_attention_fwd(qv, qv[:, :1], qv[:, :1], scale=1.0)
     torch.cuda.synchronize()
@@ -160,11 +199,18 @@ def test_flash_mma_refuses_float32_and_misaligned_rows(cuda):
 
 
 @pytest.mark.gpu
-def test_flash_kernel_refuses_unsupported_head_dim(cuda):
-    q = torch.zeros(1, 2, 8, 48, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_attention_fwd(q, q[:, :1].contiguous(),
-                                q[:, :1].contiguous(), scale=1.0)
+@pytest.mark.parametrize("D,Dv", [(48, 48), (192, 192), (128, 192),
+                                  (256, 128)])
+def test_flash_kernel_refuses_unsupported_head_dim(cuda, D, Dv):
+    """A (D, Dv) pair outside HEAD_DIM_PAIRS raises on the card, in
+    either dtype, and launches nothing."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 2, 8, D, device=cuda, dtype=dtype)
+        v = torch.zeros(1, 1, 8, Dv, device=cuda, dtype=dtype)
+        before = tfa.kernel_launches
+        with pytest.raises(ValueError, match="head dim"):
+            tfa.flash_attention_fwd(q, q[:, :1].contiguous(), v, scale=1.0)
+        assert tfa.kernel_launches == before
 
 
 # (B, T, H, G, N, P, chunk, dtype, init_state): the reference's SSD_CASES,

@@ -14,7 +14,12 @@ stablelm-1.6b at 4 layers is one stacked segment of 4 MHA layers (4 heads,
 ``lm_head``.  Reduced starcoder2-15b at 4 layers is one stacked segment of
 4 local layers (4 heads, 2 KV heads of 32, window 64), layernorm, biases
 on q, k, v, o and both products of its plain GELU MLP, an untied
-``lm_head``.
+``lm_head``.  Reduced deepseek-v3-671b at 3 layers is one unstacked unit
+of 3 (a dense layer, then 2 MoE layers of 8 experts top-2 with a sigmoid
+router, a selection bias and a shared expert), every layer MLA (4 heads,
+q_lora 64, kv_lora 32, rope 16, nope 32, v 32, so the flash wrapper sees
+head dims (48, 32)), an untied ``lm_head`` and the MTP head (depth 1),
+whose loss term joins the loss.
 """
 import dataclasses
 import os
@@ -84,6 +89,7 @@ MODELS = {
     "stablelm": ("stablelm-1.6b", 4, {}, 2, True, {"grads": 10},
                  "reference"),
     "starcoder2": ("starcoder2-15b", 4, {}, 2, True, (), "layer_fan_in"),
+    "deepseek": ("deepseek-v3-671b", 3, {}, 2, False, (), "reference"),
 }
 
 
@@ -141,7 +147,9 @@ def test_bridge_round_trips_exactly(models):
 
 
 def test_loss_matches(models):
-    """The loss (the MoE layers' aux loss included) and its aux term."""
+    """The loss (the MoE layers' aux loss and the MTP term included) and
+    its aux and MTP terms; the flash wrapper runs once a layer and once in
+    the MTP layer."""
     jm, jparams, tm, _ = models
     rng = np.random.default_rng(0)
     toks = rng.integers(0, tm.cfg.vocab, size=(2, 48)).astype(np.int32)
@@ -152,11 +160,14 @@ def test_loss_matches(models):
     with torch.no_grad():
         tl, tmet = tm.loss({"tokens": torch.from_numpy(toks).long(),
                             "labels": torch.from_numpy(labels).long()})
-    assert tfa.plain_calls == before + tm.cfg.n_layers
+    assert tfa.plain_calls == before + tm.cfg.n_layers + tm.cfg.mtp_depth
     np.testing.assert_allclose(float(tl), float(jl), rtol=TOL, atol=TOL)
-    np.testing.assert_allclose(float(tmet["aux"]), float(jmet["aux"]),
-                               rtol=TOL, atol=TOL)
+    assert set(tmet) == set(jmet)
+    for key in tmet:
+        np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
+                                   rtol=TOL, atol=TOL, err_msg=key)
     assert (float(jmet["aux"]) > 0) == (tm.cfg.moe is not None)
+    assert ("mtp" in tmet) == bool(tm.cfg.mtp_depth)
 
 
 def test_loss_grad_matches(models):
@@ -181,7 +192,11 @@ def test_loss_grad_matches(models):
         node = tg
         for k in path:
             node = node[k.key]
-        assert node is not None, path
+        if node is None:
+            # a leaf no gradient reaches (deepseek's ``router_bias`` only
+            # picks the top-k): autograd leaves it None, JAX gives zeros
+            assert not np.asarray(leaf).any(), path
+            continue
         # granite's and gemma2-2b's limits scale (see MODELS);
         # gemma3-1b's stays TOL
         np.testing.assert_allclose(node.numpy(), np.asarray(leaf),
@@ -608,11 +623,60 @@ def test_cache_bridge_matches_reference_layout(models):
         np.testing.assert_array_equal(a, b)
 
 
-def test_mtp_and_mla_are_later_slices():
-    """MoE models build now; MTP (deepseek-v3) still raises at build, and
-    an MLA mixer when its parameters are declared."""
-    ds = reduce_cfg(ARCHS["deepseek-v3-671b"].cfg)
-    with pytest.raises(NotImplementedError, match="MTP"):
-        build_model(ds)
-    with pytest.raises(NotImplementedError, match="mla"):
-        build_model(ds.replace(mtp_depth=0)).param_specs()
+@pytest.mark.parametrize("models", ["deepseek"], indirect=True)
+def test_deepseek_planted_faults_move_the_plain_path(models):
+    """The faults that ``chip_smoke`` plants in deepseek-v3's plain path,
+    the reference's absorbed MLA (the logits scaled by v's head dim, k_rope
+    cached unrotated, one key past the causal bound), each move its last
+    logits past the chip check's float32 gate, while the control (the same
+    attention un-absorbed, per-head K and V from the latent through the
+    plain GQA attention) stays within TOL of the sound plain path; the
+    kernel route (K and V materialised, the flash wrapper at (48, 32))
+    stays within TOL too, and ``_precap_logits`` reads the absorbed
+    path's pre-softmax logits of the first and last layer, near an rms of
+    1 (``q_norm`` and ``kv_norm`` normalise both latents)."""
+    _, _, tm, _ = models
+    m = tm.cfg.mla
+    assert m.v_dim != m.nope_dim + m.rope_dim
+    diffs, precap = _planted_faults(tm, chip_smoke.DEEPSEEK_CONTROL,
+                                    chip_smoke.DEEPSEEK_FAULTS)
+    assert diffs[chip_smoke.DEEPSEEK_CONTROL] <= TOL, diffs
+    for fault in chip_smoke.DEEPSEEK_FAULTS:
+        assert diffs[fault] > chip_smoke.LOGIT_TOL, (fault, diffs)
+    for st in precap.values():
+        assert "share_past_bend" not in st
+        assert st["max_abs"] >= st["rms"] and 0.3 < st["rms"] < 3
+
+
+def test_deepseek_f64_floor_covers_the_absorbed_attention():
+    """``chip_smoke._f64_attention`` (phase 36's float32 floor) runs MLA's
+    absorbed attention in float64 too, its W_uk and W_uv einsums
+    included: on float32 inputs its output is the float64 result rounded
+    once (here written out in float64 einsums), where the float32 path's
+    own rounding sits further off."""
+    from repro_torch.models import attention
+    rng = np.random.default_rng(9)
+    B, S, H, L, R, N, V = 1, 24, 4, 32, 16, 32, 32
+    q_nope, q_rope, c_kv, k_rope, wk_b, wv_b = (
+        torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        for shape in ((B, S, H, N), (B, S, H, R), (B, S, L), (B, S, R),
+                      (L, H, N), (L, H, V)))
+    pos = torch.arange(S)[None]
+    scale = (N + R) ** -0.5
+    kw = dict(wk_b=wk_b, wv_b=wv_b, scale=scale, q_pos=pos, k_pos=pos)
+    with chip_smoke._f64_attention():
+        got = attention.mla_absorbed(q_nope, q_rope, c_kv, k_rope, **kw)
+    f32 = attention.mla_absorbed(q_nope, q_rope, c_kv, k_rope, **kw)
+    d = [t.double() for t in (q_nope, q_rope, c_kv, k_rope, wk_b, wv_b)]
+    logits = (torch.einsum("bshl,btl->bhst",
+                           torch.einsum("bshk,lhk->bshl", d[0], d[4]), d[2])
+              + torch.einsum("bshr,btr->bhst", d[1], d[3])) * scale
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    probs = torch.softmax(logits.masked_fill(~causal, float("-inf")), -1)
+    want = torch.einsum("bshl,lhk->bshk",
+                        torch.einsum("bhst,btl->bshl", probs, d[2]),
+                        d[5]).float()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    assert float((f32 - want).abs().max()) > 10 * float(
+        (got - want).abs().max())

@@ -47,6 +47,7 @@ GRANITE = "granite-moe-1b-a400m"
 GEMMA2 = "gemma2-2b"
 STABLELM = "stablelm-1.6b"
 STARCODER2 = "starcoder2-15b"
+DEEPSEEK = "deepseek-v3-671b"
 MAX_LEN = 48
 
 
@@ -103,6 +104,19 @@ def starcoder2():
     jcfg = jreduce(JARCHS[STARCODER2].cfg)
     eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
     return ((reduce_cfg(ARCHS[STARCODER2].cfg), jcfg),
+            jax.tree.map(np.asarray, eng.params))
+
+
+@pytest.fixture(scope="module")
+def deepseek():
+    """Reduced deepseek-v3-671b (3 MLA layers of 4 heads, a dense layer
+    then two MoE layers of 8 experts top-2 with the sigmoid router and a
+    shared expert, capacity 8, an untied ``lm_head``, the MTP head, which
+    serving never reads): (port cfg, reference cfg) and the reference
+    engine's weights."""
+    jcfg = jreduce(JARCHS[DEEPSEEK].cfg)
+    eng = JServeEngine(jcfg, slots=1, max_len=MAX_LEN)
+    return ((reduce_cfg(ARCHS[DEEPSEEK].cfg), jcfg),
             jax.tree.map(np.asarray, eng.params))
 
 
@@ -227,6 +241,38 @@ def test_run_serve_starcoder2_matches_reference_sequential(starcoder2):
     assert {"b1", "b2"} <= set(params["seg0"]["u0"]["mlp"])
     assert "lm_head" in params
     _serve_matches_reference(cfgs, params, "inproc", None, arch=STARCODER2)
+
+
+def test_run_serve_deepseek_matches_reference_sequential(deepseek):
+    """Reduced deepseek-v3-671b served in-proc (MLA through the flash
+    route at head dims (48, 32) in every prefill, the absorbed form over
+    the latent cache at every decode step, the sigmoid-routed MoE with a
+    shared expert) answers every request with the reference's sequential
+    tokens; at capacity 8 the 2-slot decode batch drops no assignment."""
+    cfgs, params = deepseek
+    assert cfgs[0].n_layers == 3 and cfgs[0].pattern == ("mla",)
+    assert cfgs[0].moe.capacity_factor == 8 and "mtp" in params
+    _serve_matches_reference(cfgs, params, "inproc", None, arch=DEEPSEEK)
+
+
+def test_run_serve_takes_a_depth_cut():
+    """``run_serve(overrides=...)`` serves the config with those fields
+    replaced, as the card serves deepseek-v3-671b cut to 4 layers and no
+    MTP head: here reduced deepseek-v3 cut to 2 layers runs the flash
+    route twice a prefill."""
+    load = LoadSpec(rps=50.0, requests=3, prompt_lens=(4, 8), max_new_lo=2,
+                    max_new_hi=4, seed=3)
+    out = run_serve(arch=DEEPSEEK, clients=1, slots=2, max_len=MAX_LEN,
+                    load=load, device="cpu",
+                    overrides={"n_layers": 2, "mtp_depth": 0})
+    res = out["result"]
+    assert res["served"] == 3 and res["queue_left"] == 0
+    assert res["plain_calls"]["flash_attention_fwd"] == 2 * res["prefills"]
+    prog = serve_program(arch=DEEPSEEK, dtype="float64",
+                         overrides={"n_layers": 2, "mtp_depth": 0},
+                         device="cpu")
+    assert (prog.cfg.n_layers, prog.cfg.mtp_depth, prog.cfg.dtype) == (
+        2, 0, "float64")
 
 
 def test_engines_drawn_as_rescale_their_own_params():
