@@ -8,7 +8,7 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Nine main paths are driven, each at full width, all but
+raise on failure.  Ten main paths are driven, each at full width, all but
 deepseek-v3-671b at full depth: serving gemma3-1b (flash attention),
 mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
@@ -21,7 +21,8 @@ biases, the plain GELU MLP), deepseek-v3-671b cut to its first 4 layers
 (3 dense, 1 MoE) and no MTP head (MLA: flash attention at 128 heads of
 q/k head dim 192 and v head dim 128; 256 experts top-8, a sigmoid router
 and a shared expert), and training gemma3-1b (flash attention in every
-forward):
+forward and in every remat recompute), at 512 tokens a sequence and at
+8,192, where training attention is chunked:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -32,7 +33,8 @@ forward):
 3. the flash kernels against their plain PyTorch version on the card, on
    the reference's test cases, ragged tails and the serving paths' shapes
    (gemma3-1b's, recurrentgemma-9b's, the training forward's,
-   granite-moe-1b-a400m's, gemma2-2b's, stablelm-1.6b's,
+   the 8,192-token training forward's, granite-moe-1b-a400m's,
+   gemma2-2b's, stablelm-1.6b's,
    starcoder2-15b's, also at 4,608 tokens, where its window of 4096 masks
    keys, and deepseek-v3-671b's, where v has its own head dim), each row
    with the variant it
@@ -99,9 +101,11 @@ forward):
     the server drains cleanly;
 19. gemma3-1b trained by the event-driven trainer
     (``EventDrivenTrainer.run``, in-proc, 2 ranks, AdamW, bf16, 4 steps of
-    2 sequences of 512 a rank): the flash kernel's launches (26 a forward),
-    no plain call, the backward's plain recomputes (26 a backward), finite
-    losses, bit-equal replicas; one step split into forward and backward,
+    2 sequences of 512 a rank, the config's remat "full"): the flash
+    kernel's launches (52 a rank-step: 26 in the forward, 26 again in the
+    remat recompute), no plain call, the backward's dense plain recomputes
+    (26 a backward), finite losses, bit-equal replicas; one step split
+    into forward and backward,
     the grads' copy to the host, the quorum reduce, the copy back and the
     update (host clock), the forward and backward under the profiler,
     peak device memory and peak RSS; then float32 runs, the kernel path
@@ -185,7 +189,18 @@ forward):
 38. float32 serving of deepseek-v3-671b gated by replay, as phase 22:
     every token must equal the replay's, and the gate must reject phase
     22's two MoE faults;
-39. where deepseek-v3-671b's serving time goes, as in phase 7.
+39. where deepseek-v3-671b's serving time goes, as in phase 7;
+40. gemma3-1b trained at full width and depth on one sequence of 8,192
+    tokens a step (``EventDrivenTrainer.run``, in-proc, 1 rank, AdamW,
+    bf16, remat "full", 2 steps): 52 flash launches a rank-step, all
+    ``mma_bf16``, 26 backward recomputes a rank-step, all through the
+    chunked vjp, no plain forward, finite losses, the peak; remat's effect
+    on one bf16 ``value_and_grad`` ("none" twice, "dots", "full": each
+    peak, equal losses, grads within the control's spread); the chunked
+    backward against the dense one at S = 8,192 and 16,384, window 512 and
+    none, float32, with each peak; and float32 sgdm runs of the kernel
+    path against the chunked plain path, phase 19's gate, which must
+    reject the window mask moved one key inside the chunked path.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -708,6 +723,10 @@ def phase_kernels(out):
                    softcap=None, dtype="bfloat16",
                    B=TRAIN_DATA["global_batch"] // TRAIN_RANKS,
                    path=f"{GEMMA}-train") for w in PATH_WINDOWS]
+    # ... and phase 40's: one sequence of 8,192 tokens
+    cases += [dict(S=LONG_TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
+                   softcap=None, dtype="bfloat16", B=1, path=LONG_TRAIN_PATH)
+              for w in PATH_WINDOWS]
     rows = []
     for n, c in enumerate(cases):
         c.setdefault("Dv", c["D"])
@@ -1316,6 +1335,24 @@ def _f64_floor(rmodel, toks, lr, choices):
     with _routed_as(choices), _f64_attention():
         lf = _prefill(rmodel, toks)
     return float((lf - lr).abs().max())
+
+
+@contextlib.contextmanager
+def chunked_fault():
+    """While open, the chunked attention path (``_q_block`` of the plain
+    versions' module, which its forward and its q-chunk vjp both run)
+    masks its window one key late: a query sees the key ``window``
+    positions back too."""
+    from repro_torch.kernels.flash_attention import ref
+    block = ref._q_block
+
+    def late(*a, window, **kw):
+        return block(*a, window=None if window is None else window + 1, **kw)
+    ref._q_block = late
+    try:
+        yield
+    finally:
+        ref._q_block = block
 
 
 @contextlib.contextmanager
@@ -2759,13 +2796,16 @@ TRAIN_PARITY_OPT = dict(name="sgdm", peak_lr=1.0, warmup=1, total_steps=100,
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6
 TRAIN_FAULTS = {"plain": "attention_scale_x1.01",
-                "replicas": "own_grads_only"}
+                "replicas": "own_grads_only",
+                "chunked": "chunked_window_plus_1"}
 
 
-def _train_run(dtype, attn_impl, opt, steps, fault=None):
-    """One in-proc EventDrivenTrainer.run of full-width gemma3-1b on the
-    card; ``fault`` plants one of TRAIN_FAULTS for this run only.
-    Returns (trainer, result, host-clock arrival time of each metric)."""
+def _train_run(dtype, attn_impl, opt, steps, fault=None, data=TRAIN_DATA,
+               ranks=TRAIN_RANKS):
+    """One in-proc EventDrivenTrainer.run of full-width gemma3-1b (its
+    config's remat, "full") on the card, ``ranks`` ranks on ``data``;
+    ``fault`` plants one of TRAIN_FAULTS for this run only.  Returns
+    (trainer, result, host-clock arrival time of each metric)."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataCfg
@@ -2775,9 +2815,8 @@ def _train_run(dtype, attn_impl, opt, steps, fault=None):
     cfg = ARCHS[GEMMA].cfg.replace(dtype=dtype, attn_impl=attn_impl)
     # a full-width step takes seconds: the straggler bound must not cut a
     # rank out of a synchronous step
-    tcfg = rt.TrainerCfg(steps=steps, n_ranks=TRAIN_RANKS,
-                         collect_timeout=600.0)
-    tr = rt.EventDrivenTrainer(build_model(cfg), DataCfg(**TRAIN_DATA),
+    tcfg = rt.TrainerCfg(steps=steps, n_ranks=ranks, collect_timeout=600.0)
+    tr = rt.EventDrivenTrainer(build_model(cfg), DataCfg(**data),
                                OptCfg(**opt), tcfg,
                                device=torch.device("cuda"))
     arrivals = []
@@ -2793,9 +2832,12 @@ def _train_run(dtype, attn_impl, opt, steps, fault=None):
         def own_only(self, rank, grads):
             self.got = {rank: grads}
         rt.QuorumCollector.ensure_own = own_only
+    planted = (chunked_fault() if fault == TRAIN_FAULTS["chunked"]
+               else contextlib.nullcontext())
     try:
         t0 = time.monotonic()
-        res = tr.run(timeout=900)
+        with planted:
+            res = tr.run(timeout=900)
         torch.cuda.synchronize()
     finally:
         attention.ref_attention = plain_attention
@@ -2914,8 +2956,11 @@ def phase_train(out):
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.flash_attention import ops as fa
     cfg = ARCHS[GEMMA].cfg
-    expected = path_kernels(cfg)["flash_attention_fwd"] * TRAIN_RANKS \
-        * TRAIN_STEPS
+    # each rank-step runs every attention layer's backward once, and its
+    # forward once more under remat (the config's "full"): the recompute
+    recomputes_want = path_kernels(cfg)["flash_attention_fwd"] \
+        * TRAIN_RANKS * TRAIN_STEPS
+    expected = recomputes_want * (1 if cfg.remat == "none" else 2)
     all_ops = _all_ops()
     torch.cuda.synchronize()
     for ops in all_ops.values():
@@ -2924,18 +2969,19 @@ def phase_train(out):
                          TRAIN_STEPS)
     launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
     plain = {k: ops.plain_calls for k, ops in all_ops.items()}
-    recomputes = fa.backward_recomputes
+    by_path = dict(fa.backward_by_path)
     fa_by_variant = dict(fa.launches_by_variant)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = _losses(res)
     row = {"arch": GEMMA, "card": out.get("card"), "dtype": cfg.dtype,
+           "remat": cfg.remat,
            "ranks": TRAIN_RANKS, "steps": TRAIN_STEPS, "optimizer": "adamw",
            "data": TRAIN_DATA, "wall_s": res["wall_s"],
            "metric_arrivals_s": res["metric_arrivals_s"],
            "losses": {f"{r}/{s}": v for (r, s), v in losses.items()},
            "kernel_launches": launches, "plain_calls": plain,
            "flash_launches_by_variant": fa_by_variant,
-           "backward_recomputes": recomputes,
+           "backward_by_path": by_path,
            "timeouts": res["timeouts"],
            "max_memory_allocated_gib": peak_gib}
     checks = {
@@ -2950,7 +2996,8 @@ def phase_train(out):
         "no other kernel launched": not any(
             n for k, n in launches.items() if k != "flash_attention_fwd"),
         "plain_calls == 0": not any(plain.values()),
-        f"backward_recomputes == {expected}": recomputes == expected,
+        f"backward recomputes == {recomputes_want}, all dense":
+            by_path == {"dense": recomputes_want, "chunked": 0},
         "no straggler timeout": res["timeouts"] == 0,
     }
     del res
@@ -3020,6 +3067,284 @@ def phase_train(out):
     out[f"train_parity_{GEMMA}"] = report
 
 
+# ------------------------------------ training at the chunked length
+# phase 40: full-width gemma3-1b trained at 8,192 tokens, the length from
+# which the reference's training attention is chunked (S >= 8192, a
+# multiple of 2048): its plain path runs chunked_attention forward and
+# backward, the flash kernel's backward recomputes through the chunked vjp.
+# One rank, one sequence a step: two in-proc ranks step at once on the one
+# card and would not fit (PERF.md §5 reckons the peak).
+LONG_TRAIN_DATA = dict(vocab=262144, seq=8192, global_batch=1, seed=7)
+LONG_TRAIN_RANKS, LONG_TRAIN_STEPS = 1, 2
+LONG_TRAIN_PATH = f"{GEMMA}-train-8k"
+# remat's effect, one value_and_grad a setting ("none" twice: the control).
+# The losses must be equal bit for bit (remat reruns the same forward).
+# Each grad leaf's distance from the first "none" run's, relative to the
+# leaf's largest magnitude, must be within 2 x the control's distance on
+# that leaf: bit-equal where the two "none" runs are bit-equal.  The
+# embedding's backward adds its rows with atomics, so two identical runs
+# need not repeat it bit for bit; the control measures how far they part
+REMAT_RUNS = ("none", "none_again", "dots", "full")
+# the chunked backward against the dense one, float32, one attention call
+# at gemma3-1b's shape: every grad within CHUNKED_GRAD_TOL of the dense
+# backward's largest magnitude (the two sum over keys in another order)
+CHUNKED_S = (8192, 16384)
+CHUNKED_GRAD_TOL = 1e-4
+
+
+def _remat_effect(cfg):
+    """One value_and_grad of full-width gemma3-1b on one seeded sequence
+    of 8,192 tokens (bf16, seeded weights) at each of REMAT_RUNS: its peak
+    device memory above what it started from, its wall, its loss, and each
+    grad leaf's largest distance from the first "none" run's, relative to
+    the leaf's largest magnitude."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.train import value_and_grad
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = build_model(cfg).init(gen).params.to_dict()
+    toks = torch.randint(0, cfg.vocab, (1, LONG_TRAIN_DATA["seq"]),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    runs, ref = {}, None
+    for name in REMAT_RUNS:
+        remat = name.split("_")[0]
+        _free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (loss, _), grads = value_and_grad(
+            build_model(cfg.replace(remat=remat)), params, batch)
+        torch.cuda.synchronize()
+        row = {"remat": remat, "wall_ms": (time.perf_counter() - t0) * 1e3,
+               "loss": float(loss),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "peak_above_start_gib": (torch.cuda.max_memory_allocated()
+                                        - base) / 2 ** 30}
+        leaves = tree_leaves(grads)
+        if ref is None:
+            ref = leaves
+        else:
+            row["grad_rel_diff"] = [
+                float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max().clamp_min(1e-30))
+                for a, b in zip(leaves, ref)]
+        del grads, leaves
+        runs[name] = row
+    control = runs["none_again"]["grad_rel_diff"]
+    tol = [2 * c for c in control]
+    for name in ("dots", "full"):
+        runs[name]["grads_ok"] = all(
+            d <= t for d, t in zip(runs[name]["grad_rel_diff"], tol))
+    return runs, tol
+
+
+def _chunked_vs_dense():
+    """One flash attention call at gemma3-1b's shape (B=1, H=4, KH=1,
+    D=256), float32, at each of CHUNKED_S and PATH_WINDOWS: its grads
+    through the wrapper (the kernel's forward, the backward recomputed by
+    the chunked vjp at these lengths) against the dense plain version's
+    autograd, with each one's peak device memory and host wall."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    rows = []
+    for S in CHUNKED_S:
+        for window in PATH_WINDOWS:
+            gen = torch.Generator(device="cuda").manual_seed(S)
+            q, k, v, go = (torch.randn((1, S, h, 256), generator=gen,
+                                       device="cuda") for h in (4, 1, 1, 4))
+            kw = dict(scale=256 ** -0.5, causal=True, window=window,
+                      softcap=None)
+            row = dict(B=1, S=S, H=4, KH=1, D=256, window=window,
+                       dtype="float32")
+            grads = {}
+            for path, fn in (("dense", fa.attention_ref),
+                             ("chunked", fa.flash_attention)):
+                _free()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                before = dict(fa.backward_by_path)
+                t0 = time.perf_counter()
+                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                grads[path] = torch.autograd.grad(fn(qq, kk, vv, **kw),
+                                                  (qq, kk, vv), go)
+                torch.cuda.synchronize()
+                row[f"{path}_ms"] = (time.perf_counter() - t0) * 1e3
+                row[f"{path}_peak_above_start_gib"] = (
+                    torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                row[f"{path}_backward_by_path"] = {
+                    p: fa.backward_by_path[p] - before[p]
+                    for p in fa.BACKWARD_PATHS}
+            row["rel_err"] = max(
+                float((c - d).abs().max() / d.abs().max())
+                for c, d in zip(grads["chunked"], grads["dense"]))
+            del grads
+            row["ok"] = (row["rel_err"] <= CHUNKED_GRAD_TOL
+                         and row["chunked_backward_by_path"]
+                         == {"dense": 0, "chunked": 1})
+            log("chunked_vs_dense " + json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def _chunked_calls():
+    """Count the plain path's calls of ``attention.chunked_attention``
+    (a list that grows by one a call) while open."""
+    from repro_torch.models import attention
+    chunked, calls = attention.chunked_attention, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return chunked(*a, **kw)
+    attention.chunked_attention = counted
+    try:
+        yield calls
+    finally:
+        attention.chunked_attention = chunked
+
+
+def phase_train_long(out):
+    """gemma3-1b trained at full width and depth on 8,192 tokens a step
+    (the trainer's main path at the reference's chunked length, remat
+    "full"), remat's effect on one step's memory, the chunked backward
+    against the dense one, and the float32 parity of the kernel path
+    against the chunked plain path with a fault planted in the latter."""
+    import math
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[GEMMA].cfg
+    per_step = path_kernels(cfg)["flash_attention_fwd"]
+    rank_steps = LONG_TRAIN_RANKS * LONG_TRAIN_STEPS
+    expected = 2 * per_step * rank_steps      # forward + remat recompute
+    all_ops = _all_ops()
+    torch.cuda.synchronize()
+    for ops in all_ops.values():
+        ops.reset_counts()                 # the main path's counts only
+    tr, res = _train_run("bfloat16", "kernel", {"name": "adamw"},
+                         LONG_TRAIN_STEPS, data=LONG_TRAIN_DATA,
+                         ranks=LONG_TRAIN_RANKS)
+    launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
+    plain = {k: ops.plain_calls for k, ops in all_ops.items()}
+    by_path = dict(fa.backward_by_path)
+    fa_by_variant = dict(fa.launches_by_variant)
+    losses = _losses(res)
+    row = {"arch": GEMMA, "card": out.get("card"), "dtype": cfg.dtype,
+           "remat": cfg.remat, "ranks": LONG_TRAIN_RANKS,
+           "steps": LONG_TRAIN_STEPS, "optimizer": "adamw",
+           "data": LONG_TRAIN_DATA, "wall_s": res["wall_s"],
+           "metric_arrivals_s": res["metric_arrivals_s"],
+           "losses": {f"{r}/{s}": v for (r, s), v in losses.items()},
+           "kernel_launches": launches, "plain_calls": plain,
+           "flash_launches_by_variant": fa_by_variant,
+           "backward_by_path": by_path, "timeouts": res["timeouts"],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30}
+    checks = {
+        f"{len(losses)} losses == ranks x steps": len(losses) == rank_steps,
+        "every loss finite": all(math.isfinite(v) for v in losses.values()),
+        f"flash_attention_fwd launches == {expected}":
+            launches["flash_attention_fwd"] == expected,
+        "every flash_attention_fwd launch mma_bf16":
+            fa_by_variant["mma_bf16"] == expected,
+        "no other kernel launched": not any(
+            n for k, n in launches.items() if k != "flash_attention_fwd"),
+        "plain_calls == 0": not any(plain.values()),
+        f"backward recomputes == {per_step * rank_steps}, all chunked":
+            by_path == {"dense": 0, "chunked": per_step * rank_steps},
+        "no straggler timeout": res["timeouts"] == 0,
+    }
+    del tr, res
+    _free()
+    log("train_8k " + json.dumps(row))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_8k checks failed: {failed}")
+    out[f"train_8k_{GEMMA}"] = row
+    out.setdefault("main_path_launches", {})[LONG_TRAIN_PATH] = {
+        "flash_attention_fwd": launches["flash_attention_fwd"]}
+    out.setdefault("flash_main_path_by_variant", {})[
+        LONG_TRAIN_PATH] = fa_by_variant
+
+    # remat's effect on one step
+    runs, tol = _remat_effect(cfg)
+    _free()
+    log("remat_8k " + json.dumps({"runs": runs, "grad_tol": tol}))
+    out[f"remat_8k_{GEMMA}"] = runs
+    checks = {f"{n} loss == none": runs[n]["loss"] == runs["none"]["loss"]
+              for n in REMAT_RUNS[1:]}
+    checks.update({f"{n} grads within the control": runs[n]["grads_ok"]
+                   for n in ("dots", "full")})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"remat_8k checks failed: {failed}")
+
+    # the chunked backward against the dense one
+    rows = _chunked_vs_dense()
+    _free()
+    out["chunked_vs_dense"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"chunked backward disagrees: {bad}")
+
+    # float32: the kernel path against the chunked plain path, a fault
+    # planted in the plain path's chunked attention
+    fa_before = _fa_variants()
+    runs = {}
+    for name, impl, fault in (("kernel", "kernel", None),
+                              ("plain", "ref", None),
+                              (TRAIN_FAULTS["chunked"], "ref",
+                               TRAIN_FAULTS["chunked"])):
+        recomputed = dict(fa.backward_by_path)
+        with _chunked_calls() as calls:
+            tr, res = _train_run("float32", impl, TRAIN_PARITY_OPT,
+                                 LONG_TRAIN_STEPS, fault,
+                                 data=LONG_TRAIN_DATA,
+                                 ranks=LONG_TRAIN_RANKS)
+        del tr
+        runs[name] = {"res": res, "wall_s": res["wall_s"],
+                      "chunked_attention_calls": len(calls),
+                      "flash_backward_by_path": {
+                          p: fa.backward_by_path[p] - recomputed[p]
+                          for p in fa.BACKWARD_PATHS}}
+        if name == "kernel":
+            continue
+        runs[name]["gate"] = _parity(runs["kernel"]["res"], res)
+        del res["final_params"]           # free the card for the next run
+        _free()
+    _check_float32_simt(_fa_variants_since(fa_before), "train_8k float32")
+    report = {n: {k: v for k, v in r.items() if k != "res"}
+              for n, r in runs.items()}
+    report["kernel"]["losses"] = {f"{r}/{s}": v for (r, s), v in
+                                  _losses(runs["kernel"]["res"]).items()}
+    del runs
+    _free()
+    log("train_8k_parity " + json.dumps({
+        "arch": GEMMA, "dtype": "float32", "optimizer": TRAIN_PARITY_OPT,
+        "steps": LONG_TRAIN_STEPS, "loss_rtol": TRAIN_LOSS_RTOL,
+        "param_rtol": TRAIN_PARAM_RTOL, "param_atol": TRAIN_PARAM_ATOL,
+        **report}))
+    layer_calls = 2 * per_step * rank_steps   # forward + remat recompute
+    checks = {
+        "float32 kernel path == chunked plain path":
+            not report["plain"]["gate"]["rejected"],
+        "the chunked fault fails the gate":
+            report[TRAIN_FAULTS["chunked"]]["gate"]["rejected"],
+        "kernel run's backwards all chunked":
+            report["kernel"]["flash_backward_by_path"]
+            == {"dense": 0, "chunked": per_step * rank_steps},
+        f"plain run's chunked_attention calls == {layer_calls}":
+            report["plain"]["chunked_attention_calls"] == layer_calls,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_8k parity checks failed: {failed}")
+    out[f"train_8k_parity_{GEMMA}"] = report
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -3072,6 +3397,8 @@ PHASES = {
          lambda out: phase_replay(out, DEEPSEEK)),
     39: ("deepseek-v3-671b profile",
          lambda out: phase_profile(out, DEEPSEEK)),
+    40: ("gemma3-1b train at 8,192 tokens (remat, chunked attention)",
+         phase_train_long),
 }
 
 

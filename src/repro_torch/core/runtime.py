@@ -1056,6 +1056,11 @@ class Runtime:
                 t.join(5.0)
             for s in self._sched.values():
                 s.join()
+            # the progress and timer threads hold the runtime, and through
+            # it every task's closure: end them before run returns, so a
+            # caller's gc.collect() frees what the program built
+            for t in self._prog_threads + [self._timer_thread]:
+                t.join(5.0)
             self.transport.close()
             if self._durable is not None:
                 # land every queued log record (sqlite readers outlive us)

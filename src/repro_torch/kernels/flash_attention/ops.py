@@ -21,12 +21,16 @@ is every served and trained path; ``"simt"`` (float32 FMAs) for every other
 call, float32 included.  A launch that fails raises; no other variant is
 tried.
 
-The backward pass recomputes the plain version under autograd, as the
+The backward pass recomputes a plain version under autograd, as the
 reference's ``_fa_bwd`` does (an XLA VJP of its plain attention, not a
-Pallas kernel): the forward is exact, so its gradients are exact too.  Each
-recompute counts in :data:`backward_recomputes`, apart from
-:data:`plain_calls`, so a training step on the card shows that its forward
-never took the plain version.  A backward kernel is later work.
+Pallas kernel): the forward is exact, so its gradients are exact too.  Like
+the reference's, it takes the dense attention below the chunked length and
+``chunked_attention`` at it (``ref.use_chunked``: S >= 8192, a multiple of
+2048), whose vjp runs one q chunk at a time.  Each recompute counts in
+:data:`backward_by_path` by the path it took (``backward_recomputes`` is
+their sum), apart from :data:`plain_calls`, so a training step on the card
+shows that its forward never took the plain version.  A backward kernel is
+later work.
 """
 from __future__ import annotations
 
@@ -46,8 +50,10 @@ plain_calls = 0
 VARIANTS = ("mma_bf16", "simt")
 #: kernel launches in this process by variant
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-#: backward passes, each a recompute of the plain version under autograd
-backward_recomputes = 0
+BACKWARD_PATHS = ("dense", "chunked")
+#: backward passes, each a recompute of a plain version under autograd, by
+#: the plain version it recomputed
+backward_by_path = dict.fromkeys(BACKWARD_PATHS, 0)
 _count_lock = threading.Lock()
 
 #: the (D, Dv) pairs (q/k head dim, v head dim) both kernels are built for,
@@ -66,13 +72,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
-    global kernel_launches, plain_calls, backward_recomputes
+    global kernel_launches, plain_calls
     with _count_lock:
         kernel_launches = 0
         plain_calls = 0
-        backward_recomputes = 0
         for v in VARIANTS:
             launches_by_variant[v] = 0
+        for p in BACKWARD_PATHS:
+            backward_by_path[p] = 0
+
+
+def __getattr__(name):
+    # backward_recomputes: every backward pass, whichever path it took
+    if name == "backward_recomputes":
+        return sum(backward_by_path.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _count(kernel: Optional[str]) -> None:
@@ -242,14 +256,20 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         scale, causal, window, softcap = ctx.cfg
-        with torch.enable_grad():
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            out = attention_ref(qq, kk, vv, scale=scale, causal=causal,
-                                window=window, softcap=softcap)
-            gq, gk, gv = torch.autograd.grad(out, (qq, kk, vv), g)
-        global backward_recomputes
+        if _ref.use_chunked(q.shape[1]):
+            path = "chunked"
+            gq, gk, gv = _ref.chunked_attention_vjp(
+                q, k, v, g, scale=scale, window=window, cap=softcap,
+                causal=causal)
+        else:
+            path = "dense"
+            with torch.enable_grad():
+                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                out = attention_ref(qq, kk, vv, scale=scale, causal=causal,
+                                    window=window, softcap=softcap)
+                gq, gk, gv = torch.autograd.grad(out, (qq, kk, vv), g)
         with _count_lock:
-            backward_recomputes += 1
+            backward_by_path[path] += 1
         return gq, gk, gv, None, None, None, None
 
 

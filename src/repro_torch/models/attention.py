@@ -13,7 +13,11 @@ Which attention runs:
 
 * no cache (training, ``loss``): causal attention through
   :func:`repro_torch.kernels.flash_attention.ops.flash_attention` when
-  ``cfg.attn_impl == "kernel"``, else :func:`ref_attention`;
+  ``cfg.attn_impl == "kernel"``; otherwise :func:`chunked_attention` (the
+  plain chunked version, kept beside the kernel's in
+  ``kernels/flash_attention/ref.py``) at lengths :func:`use_chunked` takes
+  (S >= ``CHUNKED_THRESHOLD`` and a multiple of ``CHUNK``), else
+  :func:`ref_attention`, as the reference's ``_train_attention`` routes it;
 * a fresh cache (``fresh_cache=True``: every slot empty and the prompt at
   positions ``0..S-1``, which is how prefill runs): attending over the cache
   is exactly causal, sliding-window self-attention over the prompt, so with
@@ -46,6 +50,7 @@ import torch
 from .common import P, rms_norm, rotary, softcap
 from ..configs.config import ModelCfg
 from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.flash_attention.ref import chunked_attention, use_chunked
 
 NEG_INF = -2.0e38
 
@@ -154,6 +159,9 @@ def _train_attention(q, k, v, *, scale, positions, window, cfg: ModelCfg,
         return flash_ops.flash_attention(q, k, v, scale=scale, causal=True,
                                          window=window,
                                          softcap=cfg.attn_softcap)
+    if use_chunked(q.shape[1]):
+        return chunked_attention(q, k, v, scale=scale, window=window,
+                                 cap=cfg.attn_softcap, causal=causal)
     return ref_attention(q, k, v, scale=scale, q_pos=positions,
                          k_pos=positions, window=window,
                          cap=cfg.attn_softcap, causal=causal)

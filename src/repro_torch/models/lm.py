@@ -15,14 +15,27 @@ MLP half is a dense MLP, a Mixture-of-Experts layer (:mod:`.moe`;
 ``mlp == "none"`` (Mamba-2), absent.  DeepSeek-V3's multi-token prediction
 (``mtp_depth``) adds one layer of the last layer's kind to the loss; the
 serving path never reads it.  Encoder-decoder models raise
-NotImplementedError.
+NotImplementedError, and so does ``loss`` of a model with a frontend
+(its patch or frame prefix is not ported).
+
+Remat, as the reference's ``jax.checkpoint`` of each ``_unit_body``: when
+autograd is on and no cache is passed (training), each *unit* (the layers
+of one repeat of a segment's unit) runs under
+``torch.utils.checkpoint.checkpoint``.  ``cfg.remat == "full"`` saves
+nothing inside a unit; ``"dots"`` saves the products against weights
+(:func:`_dots_policy`) and recomputes the rest, attention included;
+``"none"`` keeps every activation.  Prefill and decode never remat.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import mamba2 as m2
@@ -180,6 +193,47 @@ def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
     if cfg.post_norms:
         out = norm_apply(lp["ln2p"], out, cfg)
     return x + out, new_cache, aux
+
+
+def _unit_apply(x, aux, layers, cfg: ModelCfg, positions, fresh_cache):
+    """The layers of one unit in order, as the reference's ``_unit_body``:
+    ``layers`` holds (desc, params, cache) a layer; aux adds up their MoE
+    losses.  Returns (x, aux)."""
+    for desc, lp, cache in layers:
+        x, _, a = layer_apply(lp, x, cfg=cfg, desc=desc, positions=positions,
+                              cache=cache, fresh_cache=fresh_cache)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(weights):
+    """remat "dots": the reference's ``dots_with_no_batch_dims_saveable``
+    as a selective-checkpoint policy.  ``torch.einsum`` lowers a product
+    against a weight and attention's q.k and p.v alike to ``bmm`` (batch 1
+    at B = KH = 1, as gemma3-1b trains), so the op and its shapes cannot
+    tell them apart.  What does is an operand: a product against a weight
+    takes a view of a parameter (its storage is one of ``weights``, the
+    parameters' storages) with no batch axis of its own (2-d, a batch of
+    1, or a batch stride of 0); attention contracts two activations, and
+    the MoE's per-expert products carry the expert axis as a batch, as in
+    JAX.  Those outputs are saved, everything else recomputed.  A product
+    against a cast copy of a weight (the bf16 models' float32 router and
+    gate products) is recomputed, where JAX would save it."""
+    def weight(t):
+        return (isinstance(t, torch.Tensor)
+                and t.untyped_storage().data_ptr() in weights
+                and (t.dim() == 2 or t.shape[0] == 1 or t.stride(0) == 0))
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _PRODUCTS and any(weight(a) for a in args):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
 
 
 def mixer_cache_spec(cfg: ModelCfg, kind: str, batch: int, max_len: int):
@@ -346,18 +400,30 @@ class TransformerLM(nn.Module):
         None for training."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for si, ui, r, lp in self.layer_params():
+        remat = (cfg.remat != "none" and caches is None
+                 and torch.is_grad_enabled())
+        kw = dict(use_reentrant=False)
+        if remat and cfg.remat == "dots":
+            weights = {p.untyped_storage().data_ptr()
+                       for p in self.params.parameters()}
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy(weights))
+        elif remat and cfg.remat != "full":
+            raise ValueError(f"remat {cfg.remat!r}: not full, dots or none")
+        for (si, r), views in itertools.groupby(self.layer_params(),
+                                                key=lambda v: (v[0], v[2])):
             unit, reps = self.segments[si]
-            cache = None
-            if caches is not None:
-                cache = caches[si][ui]
-                if reps > 1:
-                    cache = _index(cache, r)
-            x, _, a = layer_apply(lp, x, cfg=cfg, desc=unit[ui],
-                                  positions=positions, cache=cache,
-                                  fresh_cache=fresh_cache)
-            if a is not None:
-                aux = aux + a
+            layers = []
+            for _, ui, _, lp in views:
+                cache = None
+                if caches is not None:
+                    cache = caches[si][ui]
+                    if reps > 1:
+                        cache = _index(cache, r)
+                layers.append((unit[ui], lp, cache))
+            args = (x, aux, layers, cfg, positions, fresh_cache)
+            x, aux = (checkpoint(_unit_apply, *args, **kw) if remat
+                      else _unit_apply(*args))
         x = norm_apply(self.params["final_norm"], x, cfg)
         return x, caches, aux
 
@@ -374,7 +440,12 @@ class TransformerLM(nn.Module):
                             device=tokens.device)[None].expand(B, S)
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {'tokens': (B,S), 'labels': (B,S)} integer tensors."""
+        """batch: {'tokens': (B,S), 'labels': (B,S)} integer tensors.
+        A model with a frontend raises NotImplementedError: the reference
+        prepends ``batch["patch_embeds"]``, which the port does not yet."""
+        if self.cfg.frontend != "none":
+            raise NotImplementedError(_LATER.format(
+                f"the {self.cfg.frontend} frontend's prefix in loss"))
         tokens = batch["tokens"]
         x = self.embed(tokens)
         h, _, aux = self.forward(x, positions=self._positions(tokens))

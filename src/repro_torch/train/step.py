@@ -5,8 +5,9 @@ The counterpart of ``repro.train.step``.  The port's model reads its own
 parameters (``model.params``), so :func:`value_and_grad` installs the tree
 it is given in a model object of its own and takes gradients with
 ``torch.autograd.grad`` over its leaves.  The reference's ``constrain`` is
-the identity on one device and is dropped; its ``remat`` is not ported
-(ROADMAP Queue 1).
+the identity on one device and is dropped.  Remat follows the config's
+``remat`` inside the model's forward (``models/lm.py``), as the reference's
+does.
 """
 from __future__ import annotations
 

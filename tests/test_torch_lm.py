@@ -680,3 +680,152 @@ def test_deepseek_f64_floor_covers_the_absorbed_attention():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
     assert float((f32 - want).abs().max()) > 10 * float(
         (got - want).abs().max())
+
+
+# ------------------------------------------------------------------ remat
+# The reference checkpoints each unit (``jax.checkpoint`` of ``_unit_body``)
+# unless ``remat == "none"``; the reduced configs set "none".  Remat changes
+# no value: the port's "full" and "dots" recompute the same ops in the same
+# order, so on the CPU they equal its "none" run bit for bit.
+REMATS = ("full", "dots")
+
+
+def _remat_batch(cfg, seed=5, S=24):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(2, S)).astype(np.int32)
+    return toks, np.roll(toks, -1, axis=1)
+
+
+def _port_grads(tm, remat, toks, labels):
+    """Loss and grads (one per parameter, None where none reaches it) of a
+    copy of ``tm`` at ``remat``, and the plain attention calls it made."""
+    m = build_model(tm.cfg.replace(remat=remat)).set_params(
+        tm.params.to_dict())
+    leaves = list(m.params.parameters())
+    before = tfa.plain_calls
+    loss, _ = m.loss({"tokens": torch.from_numpy(toks).long(),
+                      "labels": torch.from_numpy(labels).long()})
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), grads, tfa.plain_calls - before, m
+
+
+@pytest.mark.parametrize("remat", REMATS)
+@pytest.mark.parametrize("models", ["L6", "L12"], indirect=True)
+def test_remat_matches_reference(models, remat):
+    """Reduced gemma3-1b (one 6-layer unit, and two stacked) at remat
+    "full" and "dots" in both packages: the loss and every grad against
+    the reference's ``jax.value_and_grad`` at the same remat, at TOL."""
+    jm, jparams, tm, spec = models
+    toks, labels = _remat_batch(tm.cfg)
+    jrm = jbuild(jm.cfg.replace(remat=remat))
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: jrm.loss(p, jbatch)[0]))(jparams)
+    tl, grads, _, m = _port_grads(tm, remat, toks, labels)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL, atol=TOL)
+    tg = dict(zip((id(p) for p in m.params.parameters()), grads))
+    tree = jax.tree.map(lambda p: tg[id(p)], m.params.to_dict())
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jg):
+        node = tree
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_allclose(node.numpy(), np.asarray(leaf), rtol=TOL,
+                                   atol=_atol(spec, "grads", leaf),
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_remat_equals_none_bit_for_bit(models, remat):
+    """Every family case of MODELS at remat "full" and "dots" against its
+    own "none" run: loss and grads equal bit for bit (the MoE aux loss and
+    the MTP term included), and every attention layer's plain call runs
+    twice, forward and recompute (the MTP layer, outside the units, once).
+    """
+    tm = models[2]
+    toks, labels = _remat_batch(tm.cfg)
+    l0, g0, n0, _ = _port_grads(tm, "none", toks, labels)
+    l1, g1, n1, _ = _port_grads(tm, remat, toks, labels)
+    assert torch.equal(l0, l1)
+    assert len(g0) == len(g1)
+    for a, b in zip(g0, g1):
+        assert (a is None and b is None) or torch.equal(a, b)
+    attn = sum(d[0] in ("attn", "local", "mla") for d in tm.descs)
+    assert (n0, n1) == (attn + tm.cfg.mtp_depth,
+                        2 * attn + tm.cfg.mtp_depth)
+
+
+@pytest.mark.parametrize("models", ["L12"], indirect=True)
+def test_remat_only_under_autograd_without_caches(models):
+    """Without autograd (a forward under no_grad, a prefill, a decode
+    step) remat "full" runs each attention layer once, as "none" does."""
+    tm = models[2]
+    m = build_model(tm.cfg.replace(remat="full")).set_params(
+        tm.params.to_dict())
+    toks, labels = _remat_batch(tm.cfg)
+    batch = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(labels).long()}
+    for run in (lambda: m.loss(batch),
+                lambda: m.prefill(batch["tokens"], m.init_cache(2, 64))):
+        before = tfa.plain_calls
+        with torch.no_grad():
+            run()
+        assert tfa.plain_calls - before == tm.cfg.n_layers
+
+
+def _held_bytes(m, batch):
+    """(bytes left allocated by the forward, which is what its graph holds
+    for the backward: the CPU profiler's memory events summed; bytes of
+    the activations autograd saves through ``saved_tensors_hooks``,
+    parameters aside)."""
+    from torch.profiler import ProfilerActivity, profile
+    params = {p.untyped_storage().data_ptr() for p in m.parameters()}
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in params:
+            saved[st.data_ptr()] = st.nbytes()
+        return t
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = m.loss(batch)
+    held = sum(e.self_cpu_memory_usage for e in prof.key_averages())
+    return held, sum(saved.values()), loss
+
+
+@pytest.mark.parametrize("models", ["L12"], indirect=True)
+def test_remat_saved_bytes_order(models):
+    """Reduced gemma3-1b at 12 layers (two units of 6), S=64: the bytes
+    the forward leaves for the backward order "full" < "dots" < "none".
+    ``saved_tensors_hooks`` see what autograd saves outside the units
+    alone under remat (a checkpoint's own hooks are innermost inside a
+    unit, and "dots" keeps its products in the selective checkpoint's
+    cache, not as saved tensors), so they read equal for "full" and
+    "dots" and far below "none"; the bytes left allocated (the CPU
+    profiler's memory events) count the cache too."""
+    tm = models[2]
+    toks, labels = _remat_batch(tm.cfg, S=64)
+    batch = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(labels).long()}
+    held, saved = {}, {}
+    for remat in ("none", "dots", "full"):
+        m = build_model(tm.cfg.replace(remat=remat)).set_params(
+            tm.params.to_dict())
+        held[remat], saved[remat], loss = _held_bytes(m, batch)
+        del loss
+    assert held["full"] < held["dots"] < held["none"], held
+    assert saved["full"] == saved["dots"] < saved["none"] / 4, saved
+
+
+def test_vision_loss_raises():
+    """Reduced internvl2-76b: the port does not prepend ``patch_embeds``
+    (the reference's ``loss`` does), so its ``loss`` raises, with or
+    without them, rather than drop them."""
+    cfg = reduce_cfg(ARCHS["internvl2-76b"].cfg)
+    assert cfg.frontend == "vision"
+    m = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((2, 16), dtype=torch.long)
+    for extra in ({}, {"patch_embeds": torch.zeros((2, 4, cfg.d_model))}):
+        with pytest.raises(NotImplementedError, match="vision frontend"):
+            m.loss({"tokens": toks, "labels": toks, **extra})

@@ -203,3 +203,34 @@ def test_deprecated_runtime_run_warns_under_the_suite_filter():
         port_edat.Runtime(1).run(main)
     assert any(re.match(r".*is deprecated.*edat", str(w.message))
                for w in rec)
+
+
+@pytest.mark.parametrize("progress", ["thread", "worker"])
+def test_run_leaves_no_thread_holding_the_program(progress):
+    """When ``run`` returns, the port's progress and timer threads have
+    ended, so nothing but the caller holds what the program's tasks
+    closed over: one ``gc.collect()`` frees it (a served model's weights,
+    on the card)."""
+    import gc
+    import weakref
+
+    class Held:
+        pass
+
+    held = Held()
+    ref = weakref.ref(held)
+
+    def main(ctx, held=held):
+        ctx.submit_persistent(lambda c, e: held, deps=[(port_edat.SELF, "e")])
+        ctx.fire(port_edat.SELF, "e", 1)
+
+    s = port_edat.Session(2, workers_per_rank=1, timeout=30.0,
+                          progress=progress)
+    with s:
+        rt = s.runtime                # the one-shot runtime of this run
+        s.run(main)
+        assert not any(t.is_alive()
+                       for t in rt._prog_threads + [rt._timer_thread])
+    del held, main, s, rt
+    gc.collect()
+    assert ref() is None
