@@ -8,7 +8,7 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Ten main paths are driven, each at full width, all but
+raise on failure.  Twelve main paths are driven, each at full width, all but
 deepseek-v3-671b at full depth: serving gemma3-1b (flash attention),
 mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
@@ -22,7 +22,9 @@ biases, the plain GELU MLP), deepseek-v3-671b cut to its first 4 layers
 q/k head dim 192 and v head dim 128; 256 experts top-8, a sigmoid router
 and a shared expert), and training gemma3-1b (flash attention in every
 forward and in every remat recompute), at 512 tokens a sequence and at
-8,192, where training attention is chunked:
+8,192, where training attention is chunked, and serving and training
+whisper-tiny (the encoder-decoder model: flash attention not causal in
+every encoder layer, causal in every decoder self-attention layer):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -36,7 +38,11 @@ forward and in every remat recompute), at 512 tokens a sequence and at
    the 8,192-token training forward's, granite-moe-1b-a400m's,
    gemma2-2b's, stablelm-1.6b's,
    starcoder2-15b's, also at 4,608 tokens, where its window of 4096 masks
-   keys, and deepseek-v3-671b's, where v has its own head dim), each row
+   keys, deepseek-v3-671b's, where v has its own head dim, and
+   whisper-tiny's encoder, not causal, at 100, 1,500 and 4,096 frames in
+   both dtypes, gated at TOL x max|plain| because its outputs are
+   averages over S keys, where a causal mask and the last key dropped,
+   planted in the plain version, must each fail on every row), each row
    with the variant it
    launched (the bf16 tensor-core kernel for bf16, the SIMT kernel for
    float32), with CUDA-event and device times of the kernel, of the SIMT
@@ -200,7 +206,26 @@ forward and in every remat recompute), at 512 tokens a sequence and at
     backward against the dense one at S = 8,192 and 16,384, window 512 and
     none, float32, with each peak; and float32 sgdm runs of the kernel
     path against the chunked plain path, phase 19's gate, which must
-    reject the window mask moved one key inside the chunked path.
+    reject the window mask moved one key inside the chunked path;
+41. whisper-tiny at full width and depth (4 + 4 layers), bf16: for each
+    of three prompts (100, 256, 384 tokens) over 1,500 seeded stub frames
+    a prefill through ``make_prefill_step`` into a cache of 512 and 32
+    greedy steps through ``make_serve_step`` (the serving engine serves
+    decoder-only models alone), counted as in phase 5: 4 non-causal and 4
+    causal ``mma_bf16`` launches a prefill, none a decode step, no plain
+    call; the bf16 kernel path against the plain path (reported); then
+    float32 prefills, kernel path against plain path, at the port's init
+    and at one layer's fan-in (each gated unless the plain path's float64
+    floor is above the gate), which must reject the encoder run causal
+    and the cross K/V taken from the wrong layer, and the decode steps
+    against one teacher-forced decode within the reference's 2e-4;
+42. whisper-tiny trained through ``make_train_step`` (bf16, AdamW, remat
+    "full", 4 steps of 4 sequences of 1,500 frames and 448 tokens): 16
+    flash launches a step (8 not causal), all ``mma_bf16``, 8 dense
+    backward recomputes, no plain call, finite losses near ln(vocab), each
+    step's wall and the peak; then float32 sgdm runs of 3 steps, kernel
+    path against plain path at phase 19's gate, which must reject a
+    1.01 x plain attention scale.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -421,6 +446,24 @@ DEEPSEEK_FA_SHAPE = dict(H=128, KH=128, D=192, Dv=128, window=None)
 DEEPSEEK_CONTROL = "mla_expanded"
 DEEPSEEK_FAULTS = ("v_dim_scale", "k_rope_unrotated", "causal_shift")
 
+WHISPER = "whisper-tiny"
+# the encoder's flash shape (B=1, 6 heads, 6 KV heads of 64, no window, not
+# causal) at whisper's 1,500 frames, one length below it and the 4,096
+# frames of the reference's train_4k cell, in both dtypes (phase 3); the
+# decoder's self-attention is causal at the same heads
+WHISPER_FA_SHAPE = dict(H=6, KH=6, D=64, window=None, softcap=None)
+WHISPER_ENC_S = (100, 1500, 4096)
+# faults planted in phase 3's non-causal rows, in the plain version the
+# kernel is held to: the causal mask on a non-causal call, and the last
+# key (of the ragged tail, where S is not a multiple of 64) dropped; each
+# must fail the gate on every non-causal row (``_fa_limit``)
+NONCAUSAL_FAULTS = ("causal_mask", "last_key_dropped")
+# faults planted in phases 41's plain path (``encdec_fault``): the encoder
+# run causal, and each decoder layer's cross K/V taken from the layer
+# before; each must fail the float32 gate at every prompt length of every
+# gated weight set
+ENCDEC_FAULTS = ("encoder_causal", "cross_kv_layer_shift")
+
 RG_SOURCE = "src/repro_torch/csrc/rglru_fwd.cu"
 RG_REPLACES = "src/repro/kernels/rglru/kernel.py:59"
 # (B, T, W, h0, lam): the reference's RG_CASES (tests/test_kernels.py, drawn
@@ -531,16 +574,19 @@ def kernel_device_ms(fn, entry, event_ms=None, iters=20, warmup=3,
                          f"more ({device_events} device events a window)")
 
 
-def fa_bound(B, H, KH, S, D, window, dtype, Dv=None):
-    """Least time for one causal attention call: each input read once and
-    the output written once over the memory rate, against the products
-    over the live (q, k) pairs over the peak rate of the dtype.  q and k
-    have head dim D, v and the output Dv (D where None)."""
+def fa_bound(B, H, KH, S, D, window, dtype, Dv=None, causal=True):
+    """Least time for one attention call: each input read once and the
+    output written once over the memory rate, against the products over
+    the live (q, k) pairs (causal: each query's keys up to its own, inside
+    the window; not causal: all S x S) over the peak rate of the dtype.  q
+    and k have head dim D, v and the output Dv (D where None)."""
     Dv = D if Dv is None else Dv
     elem = 2 if dtype == "bfloat16" else 4
     nbytes = (B * H * S * (D + Dv) + B * KH * S * (D + Dv)) * elem
     w = window or S
-    pairs = sum(min(i + 1, w) for i in range(S))
+    pairs = (sum(min(i + 1, w) for i in range(S)) if causal
+             else S * S if window is None
+             else sum(S - max(i - w + 1, 0) for i in range(S)))
     flops = 2 * B * H * pairs * (D + Dv)   # q.k and p.v, 2 flops a MAC
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return {"bytes": nbytes, "flops": flops,
@@ -647,18 +693,48 @@ def _fa_inputs(S, H, KH, D, Dv, dtype, B, seed, model_layout):
             for h, d in shapes]
 
 
-def _sdpa(q, k, v, *, scale, window):
+def _sdpa(q, k, v, *, scale, window, causal=True):
     """``scaled_dot_product_attention`` with an explicit causal/window
-    mask: the library yardstick, timed here and used nowhere in the port."""
+    mask (not causal and no window: no mask at all): the library
+    yardstick, timed here and used nowhere in the port."""
     import torch
     import torch.nn.functional as F
     S = q.shape[2]
+    if not causal and window is None:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale, enable_gqa=True)
     i = torch.arange(S, device=q.device)
-    mask = i[None, :] <= i[:, None]
+    mask = (i[None, :] <= i[:, None] if causal
+            else torch.ones((S, S), dtype=torch.bool, device=q.device))
     if window is not None:
         mask &= (i[:, None] - i[None, :]) < window
     return lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def _fa_limit(plain, tol, causal):
+    """The flash gate's limit on |kernel - plain|, elementwise: tol x (1 +
+    |plain|) for a causal row; tol x max|plain| for a non-causal one,
+    whose outputs average over all S keys and so are ~sqrt(e / S) in size
+    on N(0, 1) inputs (0.026 at 4,096 keys), where tol x (1 + |plain|)
+    would be as large as a typical output and pass a dropped key."""
+    plain = plain.float().abs()
+    return tol + tol * plain if causal else tol * plain.max()
+
+
+def _last_key_dropped(q, k, v, *, scale, **_):
+    """The plain version of a non-causal call with the last key dropped
+    (NONCAUSAL_FAULTS): every query's softmax over keys 0 .. S-2, as
+    ``ref.attention_ref`` rounds it (float32 logits, p in v's dtype)."""
+    import torch
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    qr = q.reshape(B, KH, H // KH, S, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qr.float(),
+                     k[:, :, :-1].float()) * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype), v[:, :, :-1])
+    return out.reshape(B, H, S, v.shape[-1])
 
 
 def _flex(q, k, v, *, scale, window, softcap):
@@ -727,13 +803,29 @@ def phase_kernels(out):
     cases += [dict(S=LONG_TRAIN_DATA["seq"], H=4, KH=1, D=256, window=w,
                    softcap=None, dtype="bfloat16", B=1, path=LONG_TRAIN_PATH)
               for w in PATH_WINDOWS]
+    # whisper-tiny's encoder (phases 41, 42): not causal, in bf16 (the
+    # served and trained paths) and float32 (the gates), each with the
+    # faults NONCAUSAL_FAULTS planted in the plain version; its decoder's
+    # causal prefill at the served prompts; and the training step's
+    # calls, 4 sequences of 1,500 frames and of 448 tokens
+    cases += [dict(S=S, dtype=dt, B=1, path=WHISPER, causal=False,
+                   **WHISPER_FA_SHAPE)
+              for dt in ("bfloat16", "float32") for S in WHISPER_ENC_S]
+    cases += [dict(S=S, dtype="bfloat16", B=1, path=WHISPER,
+                   **WHISPER_FA_SHAPE) for S in WHISPER_PROMPTS]
+    cases += [dict(S=S, dtype="bfloat16", path=f"{WHISPER}-train",
+                   causal=causal, B=WHISPER_TRAIN_DATA["global_batch"],
+                   **WHISPER_FA_SHAPE)
+              for S, causal in ((WHISPER_FRAMES, False),
+                                (WHISPER_TRAIN_DATA["seq"], True))]
     rows = []
     for n, c in enumerate(cases):
         c.setdefault("Dv", c["D"])
         q, k, v = _fa_inputs(c["S"], c["H"], c["KH"], c["D"], c["Dv"],
                              c["dtype"], c["B"], seed=n,
                              model_layout=c.get("path", False))
-        kw = dict(scale=c["D"] ** -0.5, causal=True, window=c["window"],
+        causal = c.get("causal", True)
+        kw = dict(scale=c["D"] ** -0.5, causal=causal, window=c["window"],
                   softcap=c["softcap"])
         before = dict(ops.launches_by_variant)
         got = ops.flash_attention_fwd(q, k, v, **kw)
@@ -743,14 +835,31 @@ def phase_kernels(out):
                if n2 != before[v2]]
         tol = TOL[c["dtype"]]
 
+        limit = _fa_limit(want, tol, causal)
+
         def within(t):
             err = (t.float() - want.float()).abs()
-            return (float(err.max()),
-                    bool((err <= tol + tol * want.float().abs()).all()))
+            return float(err.max()), bool((err <= limit).all())
 
         err, ok = within(got)
         row = {k2: c[k2] for k2 in ("B", "S", "H", "KH", "D", "Dv",
                                     "window", "softcap", "dtype")}
+        row["causal"] = causal
+        if not causal:
+            # the gate must reject the kernel held to a faulty plain version
+            faulty = {"causal_mask": lambda: ref.attention_ref(
+                          q, k, v, **dict(kw, causal=True)),
+                      "last_key_dropped": lambda: _last_key_dropped(
+                          q, k, v, **kw)}
+            planted = {}
+            for f in NONCAUSAL_FAULTS:
+                wf = faulty[f]()
+                e = (got.float() - wf.float()).abs()
+                planted[f] = {"max_abs_err": float(e.max()),
+                              "rejected": not bool(
+                                  (e <= _fa_limit(wf, tol, False)).all())}
+            row["planted_faults"] = planted
+            row["limit"] = float(limit)
         # every case here is aligned: bf16 takes the tensor cores
         row.update(variant=ran[0] if len(ran) == 1 else ran,
                    max_abs_err=err, tol=tol,
@@ -772,7 +881,8 @@ def phase_kernels(out):
                     FA_ENTRY[v2], event_ms=row[key + "ms"])
             row["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v,
                                                                 **kw))
-            sdpa = _sdpa(q, k, v, scale=kw["scale"], window=c["window"])
+            sdpa = _sdpa(q, k, v, scale=kw["scale"], window=c["window"],
+                         causal=causal)
             library = sdpa
             if c["softcap"] is not None:
                 library = _flex(q, k, v, scale=kw["scale"],
@@ -791,12 +901,24 @@ def phase_kernels(out):
             row["ok"] = row["ok"] and library_ok
             row["library_ms"] = cuda_ms(library)
             row.update(fa_bound(c["B"], c["H"], c["KH"], c["S"], c["D"],
-                                c["window"], c["dtype"], c["Dv"]))
+                                c["window"], c["dtype"], c["Dv"], causal))
         log("flash_attention_fwd " + json.dumps(row))
         rows.append(row)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain version: {bad}")
+    # each planted fault fails the gate on every non-causal row
+    missed = [(f, r["dtype"], r["B"], r["S"]) for f in NONCAUSAL_FAULTS
+              for r in rows if not r["causal"]
+              and not r["planted_faults"][f]["rejected"]]
+    log("flash_attention_fwd noncausal_faults " + json.dumps({
+        f: {dt: [(r["B"], r["S"]) for r in rows if not r["causal"]
+                 and r["dtype"] == dt and r["planted_faults"][f]["rejected"]]
+            for dt in TOL} for f in NONCAUSAL_FAULTS}))
+    if missed:
+        raise AssertionError(f"the non-causal gate does not reject the "
+                             f"planted faults (fault, dtype, B, S): "
+                             f"{missed}")
     out["flash_attention_cases"] = rows
 
 
@@ -1338,6 +1460,20 @@ def _f64_floor(rmodel, toks, lr, choices):
 
 
 @contextlib.contextmanager
+def plain_scale_fault():
+    """While open, the plain attention (``ref_attention``) scales its
+    logits by 1.01 x the call's scale: TRAIN_FAULTS["plain"]."""
+    from repro_torch.models import attention
+    plain = attention.ref_attention
+    attention.ref_attention = (
+        lambda *a, scale, **kw: plain(*a, scale=scale * 1.01, **kw))
+    try:
+        yield
+    finally:
+        attention.ref_attention = plain
+
+
+@contextlib.contextmanager
 def chunked_fault():
     """While open, the chunked attention path (``_q_block`` of the plain
     versions' module, which its forward and its q-chunk vjp both run)
@@ -1353,6 +1489,30 @@ def chunked_fault():
         yield
     finally:
         ref._q_block = block
+
+
+@contextlib.contextmanager
+def encdec_fault(fault):
+    """Plant one of ENCDEC_FAULTS in an encoder-decoder model's plain path
+    while open: ``encoder_causal`` gives every plain attention call the
+    causal mask (only the encoder's calls are not causal; cross-attention
+    passes its causal test for every key), ``cross_kv_layer_shift`` gives
+    each decoder layer the cross K/V of the layer before it (layer 0 the
+    last one's)."""
+    from repro_torch.models import attention, encdec
+    plain, kv = attention.ref_attention, encdec.enc_kv
+    if fault == "encoder_causal":
+        attention.ref_attention = lambda *a, causal=True, **kw: plain(
+            *a, causal=True, **kw)
+    elif fault == "cross_kv_layer_shift":
+        encdec.enc_kv = lambda p, enc_out: tuple(
+            t.roll(1, dims=0) for t in kv(p, enc_out))
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        attention.ref_attention, encdec.enc_kv = plain, kv
 
 
 @contextlib.contextmanager
@@ -1648,7 +1808,8 @@ def _layer_fan_in(model):
     """Scale, in place, every stacked leaf that the init draws at its
     fan-in (``normal``, no scale) to one layer's fan-in: by sqrt(layers /
     the layer's fan-in).  The init's rule (the reference's) takes a leaf's
-    fan-in from its first axis, the layers axis on a stacked leaf."""
+    fan-in from its first axis, the layers axis on a stacked leaf (every
+    leaf of an encoder-decoder model's ``enc`` and ``dec`` stacks)."""
     import math
     import torch
     specs = model.param_specs()
@@ -1664,9 +1825,14 @@ def _layer_fan_in(model):
                 leaf.mul_(math.sqrt(reps / fan_in))
 
     params = model.params.to_dict()
-    for si, (_, reps) in enumerate(model.segments):
+    # a decoder-only model's repeating segments, or an encoder-decoder
+    # model's two stacks
+    stacks = ([(f"seg{si}", reps) for si, (_, reps)
+               in enumerate(model.segments)] if hasattr(model, "segments")
+              else [(name, model.cfg.n_layers) for name in ("enc", "dec")])
+    for name, reps in stacks:
         if reps > 1:
-            walk(specs[f"seg{si}"], params[f"seg{si}"], reps)
+            walk(specs[name], params[name], reps)
 
 
 def _griffin_init(params):
@@ -2809,7 +2975,7 @@ def _train_run(dtype, attn_impl, opt, steps, fault=None, data=TRAIN_DATA,
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataCfg
-    from repro_torch.models import attention, build_model
+    from repro_torch.models import build_model
     from repro_torch.optim import OptCfg
     from repro_torch.runtime_dist import trainer as rt
     cfg = ARCHS[GEMMA].cfg.replace(dtype=dtype, attn_impl=attn_impl)
@@ -2822,17 +2988,13 @@ def _train_run(dtype, attn_impl, opt, steps, fault=None, data=TRAIN_DATA,
     arrivals = []
     tr.on_metric = lambda m: arrivals.append(
         (time.monotonic(), m["rank"], m["step"]))
-    plain_attention = attention.ref_attention
     ensure_own = rt.QuorumCollector.ensure_own
-    if fault == TRAIN_FAULTS["plain"]:
-        attention.ref_attention = (
-            lambda *a, scale, **kw: plain_attention(*a, scale=scale * 1.01,
-                                                    **kw))
-    elif fault == TRAIN_FAULTS["replicas"]:
+    if fault == TRAIN_FAULTS["replicas"]:
         def own_only(self, rank, grads):
             self.got = {rank: grads}
         rt.QuorumCollector.ensure_own = own_only
     planted = (chunked_fault() if fault == TRAIN_FAULTS["chunked"]
+               else plain_scale_fault() if fault == TRAIN_FAULTS["plain"]
                else contextlib.nullcontext())
     try:
         t0 = time.monotonic()
@@ -2840,7 +3002,6 @@ def _train_run(dtype, attn_impl, opt, steps, fault=None, data=TRAIN_DATA,
             res = tr.run(timeout=900)
         torch.cuda.synchronize()
     finally:
-        attention.ref_attention = plain_attention
         rt.QuorumCollector.ensure_own = ensure_own
     res["wall_s"] = time.monotonic() - t0
     res["metric_arrivals_s"] = [(t - t0, r, s) for t, r, s in arrivals]
@@ -3345,6 +3506,446 @@ def phase_train_long(out):
     out[f"train_8k_parity_{GEMMA}"] = report
 
 
+# ------------------------------------------- the encoder-decoder model
+# phases 41 and 42: full-width, full-depth whisper-tiny (4 encoder and 4
+# decoder layers, d 384, 6 heads of 64, vocab 51,865).  The serving engine
+# serves decoder-only models alone (as the reference's), so whisper is
+# served through make_prefill_step and make_serve_step, as the reference's
+# dry-run cells drive it, and trained through make_train_step.  The stub
+# frontend's frame embeddings are drawn by numpy from a seed: 1,500 frames
+# (30 s of audio at Whisper's 50 frames a second)
+WHISPER_FRAMES = 1500
+WHISPER_PROMPTS = (100, 256, 384)
+WHISPER_STEPS = 32                 # greedy decode steps a request
+# decode-step logits against a teacher-forced decode: the reference's own
+# limit (tests/test_arch_smoke.py), rtol = atol
+DECODE_TOL = 2e-4
+# phase 41's float32 weight sets: the port's init (the reference's rule:
+# std 0.5 on every stacked leaf, a layers axis of 4) and "layer_fan_in";
+# each gated at LOGIT_TOL unless the plain path's own float32 floor (its
+# attention in float64) is above it at some length, and then reported
+WHISPER_WEIGHTS = ("seeded", "layer_fan_in")
+# phase 42: B=4 of 1,500 frames and 448 tokens (Whisper's text context,
+# arXiv:2212.04356), AdamW, the config's remat "full"
+WHISPER_TRAIN_DATA = dict(seq=448, global_batch=4, seed=7)
+WHISPER_TRAIN_STEPS = 4
+
+
+def _frames(B, seed, d, S=WHISPER_FRAMES):
+    """Stub frame embeddings (B, S, d), float32 on the card, numpy-seeded."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (B, S, d), dtype=np.float32)).to("cuda")
+
+
+def _whisper_prefill(model, tokens, frames):
+    """One prefill through ``make_prefill_step`` into a cache of MAX_LEN:
+    (last logits of row 0 in float32, the state (caches, cross_kv))."""
+    import torch
+    from repro_torch.train import make_prefill_step
+    with torch.inference_mode():
+        lg, state = make_prefill_step(model, max_len=MAX_LEN)(
+            tokens, frame_embeds=frames)
+    return lg[0, -1].float(), state
+
+
+def _fa_masks():
+    from repro_torch.kernels.flash_attention import ops as fa
+    return dict(fa.launches_by_mask)
+
+
+def _whisper_decode_parity(model, tokens, frames):
+    """A prefill and WHISPER_STEPS greedy decode steps against one
+    teacher-forced ``decode`` of the prompt and the tokens it chose, on
+    the same encoder output: the largest distance over the step logits
+    (the prefill's last included) and its ratio to DECODE_TOL's limit."""
+    import torch
+    from repro_torch.train import make_prefill_step
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        lg, state = make_prefill_step(model, max_len=MAX_LEN)(
+            tokens, frame_embeds=frames)
+        steps, toks = [lg[:, -1]], [tokens]
+        for i in range(WHISPER_STEPS):
+            nxt = steps[-1].argmax(-1)[:, None]
+            toks.append(nxt)
+            pos = torch.full((1, 1), S + i, dtype=torch.int32, device="cuda")
+            lg, state = model.decode_step(state, nxt, pos)
+            steps.append(lg[:, -1])
+        seq = torch.cat(toks, dim=1)
+        enc = model.encode(frames)
+        pos = torch.arange(seq.shape[1], dtype=torch.int32,
+                           device="cuda")[None]
+        full, _, _ = model.decode(seq, enc, positions=pos)
+    got = torch.stack(steps, dim=1).float()
+    want = full[:, S - 1:].float()
+    err = (got - want).abs()
+    return {"steps": WHISPER_STEPS, "max_abs_diff": float(err.max()),
+            "max_abs_logit": float(want.abs().max()),
+            "ratio": float((err / (DECODE_TOL + DECODE_TOL
+                                   * want.abs())).max())}
+
+
+def _whisper_gate(weights, g):
+    """Phase 41's float32 runs at one weight set: at each prompt length a
+    prefill through the kernels against one through plain attention (the
+    same parameter tree), the plain path's float64-attention floor, the
+    ENCDEC_FAULTS planted in the plain path, each prefill's launches by
+    mask, and the decode steps against a teacher-forced decode."""
+    import torch
+    kmodel = _full_model(WHISPER, "float32", "kernel")
+    _weight_set(weights, kmodel)
+    rmodel = _full_model(WHISPER, "float32", "ref",
+                         params=kmodel.params.to_dict())
+    n = kmodel.cfg.n_layers
+    rows = []
+    for i, S in enumerate(WHISPER_PROMPTS):
+        toks = torch.randint(0, kmodel.cfg.vocab, (1, S), generator=g,
+                             device="cuda")
+        frames = _frames(1, 100 + i, kmodel.cfg.d_model)
+        before, masks, variants = _counts(), _fa_masks(), _fa_variants()
+        lk, _ = _whisper_prefill(kmodel, toks, frames)
+        launched, plain = _since(before)
+        by_mask = {m: c - masks[m] for m, c in _fa_masks().items()}
+        by_variant = _fa_variants_since(variants)
+        lr, _ = _whisper_prefill(rmodel, toks, frames)
+        with _f64_attention():
+            lf, _ = _whisper_prefill(rmodel, toks, frames)
+        faults = {}
+        for f in ENCDEC_FAULTS:
+            with encdec_fault(f):
+                lp, _ = _whisper_prefill(rmodel, toks, frames)
+            d = float((lp - lr).abs().max())
+            faults[f] = {"max_logit_diff": d,
+                         "same_first_token": int(lp.argmax())
+                         == int(lr.argmax()),
+                         "gates": d / LOGIT_TOL}
+            faults[f]["rejected"] = (d > LOGIT_TOL
+                                     or not faults[f]["same_first_token"])
+        row = {"arch": WHISPER, "dtype": "float32", "weights": weights,
+               "S": S, "frames": WHISPER_FRAMES,
+               "max_logit_diff": float((lk - lr).abs().max()),
+               "same_first_token": int(lk.argmax()) == int(lr.argmax()),
+               "max_abs_logit": float(lr.abs().max()),
+               "plain_f64_floor": float((lf - lr).abs().max()),
+               "gate": LOGIT_TOL, "planted_faults": faults,
+               "kernel_launches": launched, "plain_calls": plain,
+               "flash_launches_by_mask": by_mask,
+               "flash_launches_by_variant": by_variant,
+               "prefill_ms_kernel_path": _host_ms(
+                   lambda: _whisper_prefill(kmodel, toks, frames)),
+               "prefill_ms_plain_path": _host_ms(
+                   lambda: _whisper_prefill(rmodel, toks, frames))}
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"non-finite logits: {row}")
+        if (launched != {"flash_attention_fwd": 2 * n} or plain
+                or by_mask != {"causal": n, "noncausal": n}
+                or by_variant["simt"] != 2 * n):
+            raise AssertionError(f"float32 prefill launched {launched} "
+                                 f"({by_mask}, {by_variant}) and called "
+                                 f"plain versions {plain}")
+        rows.append(row)
+    gated = all(r["plain_f64_floor"] <= LOGIT_TOL for r in rows)
+    decode = _whisper_decode_parity(kmodel, toks, frames)
+    decode["gated"] = gated
+    for r in rows:
+        r["gated"] = gated
+        log("model " + json.dumps(r))
+    log("model " + json.dumps({"arch": WHISPER, "weights": weights,
+                               "decode_vs_teacher_forced": decode}))
+    if gated:
+        bad = [r["S"] for r in rows if r["max_logit_diff"] > LOGIT_TOL
+               or not r["same_first_token"]]
+        missed = [(r["S"], f) for r in rows
+                  for f, v in r["planted_faults"].items()
+                  if not v["rejected"]]
+        if bad or missed or decode["ratio"] > 1:
+            raise AssertionError(
+                f"whisper float32 gate at {weights}: kernel path disagrees "
+                f"at S {bad}, faults not rejected {missed}, decode "
+                f"{decode}")
+    del kmodel, rmodel
+    _free()
+    return {"prefill": rows, "decode_vs_teacher_forced": decode,
+            "gated": gated}
+
+
+def phase_whisper(out):
+    """whisper-tiny's served path at full width and depth in bf16: for each
+    of WHISPER_PROMPTS a prefill over 1,500 seeded frames through
+    ``make_prefill_step`` into a cache of MAX_LEN, then WHISPER_STEPS
+    greedy steps through ``make_serve_step``, every kernel's counts set to
+    0 just before and read just after (4 non-causal and 4 causal
+    tensor-core flash launches a prefill, none a decode step, no plain
+    call); bf16 kernel path against plain path (reported); then the
+    float32 gates (``_whisper_gate``) at each of WHISPER_WEIGHTS."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.train import make_serve_step
+    kmodel = _full_model(WHISPER, "bfloat16", "kernel")
+    rmodel = _full_model(WHISPER, "bfloat16", "ref",
+                         params=kmodel.params.to_dict())
+    cfg, n = kmodel.cfg, kmodel.cfg.n_layers
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab, (1, S), generator=g,
+                             device="cuda") for S in WHISPER_PROMPTS]
+    frames = [_frames(1, i, cfg.d_model) for i in range(len(prompts))]
+    serve_step = make_serve_step(kmodel)
+    for i in range(2):          # warm-up: the build and the first launches
+        _whisper_prefill(kmodel, prompts[i][:, :16], frames[i])
+    all_ops = _all_ops()
+    torch.cuda.synchronize()
+    for ops in all_ops.values():
+        ops.reset_counts()                 # the main path's counts only
+    requests, decode_launches = [], 0
+    for toks, fr in zip(prompts, frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, state = _whisper_prefill(kmodel, toks, fr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nxt, out_toks = last.argmax()[None, None], []
+        before = _counts()
+        S = toks.shape[1]
+        with torch.inference_mode():
+            for i in range(WHISPER_STEPS):
+                out_toks.append(nxt)
+                pos = torch.full((1, 1), S + i, dtype=torch.int32,
+                                 device="cuda")
+                nxt, state = serve_step(state, nxt, pos)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched, plain = _since(before)
+        decode_launches += sum(launched.values()) + sum(plain.values())
+        generated = torch.cat(out_toks, dim=1)[0].tolist()
+        requests.append({"S": S, "prefill_ms": (t1 - t0) * 1e3,
+                         "decode_ms_per_step": (t2 - t1) * 1e3
+                         / WHISPER_STEPS,
+                         "first_logits_finite":
+                             bool(torch.isfinite(last).all()),
+                         "tokens": generated})
+    torch.cuda.synchronize()
+    launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
+    plain = {k: ops.plain_calls for k, ops in all_ops.items()}
+    by_variant = dict(fa.launches_by_variant)
+    by_mask = dict(fa.launches_by_mask)
+    k = len(prompts)
+    checks = {
+        f"flash_attention_fwd launches == {2 * n} x {k}":
+            launches["flash_attention_fwd"] == 2 * n * k,
+        f"non-causal launches == {n} x {k}": by_mask["noncausal"] == n * k,
+        f"causal launches == {n} x {k}": by_mask["causal"] == n * k,
+        "every flash_attention_fwd launch mma_bf16":
+            by_variant["mma_bf16"] == launches["flash_attention_fwd"],
+        "no launch or plain call in a decode step": decode_launches == 0,
+        "no other kernel launched": not any(
+            c for name, c in launches.items()
+            if name != "flash_attention_fwd"),
+        "plain_calls == 0": not any(plain.values()),
+        "finite logits": all(r["first_logits_finite"] for r in requests),
+        "tokens in vocab": all(0 <= t < cfg.vocab for r in requests
+                               for t in r["tokens"]),
+    }
+    log("serve " + json.dumps({
+        "arch": WHISPER, "card": out.get("card"), "dtype": cfg.dtype,
+        "frames": WHISPER_FRAMES, "max_len": MAX_LEN,
+        "requests": [{k2: v for k2, v in r.items() if k2 != "tokens"}
+                     for r in requests],
+        "kernel_launches": launches, "plain_calls": plain,
+        "flash_launches_by_variant": by_variant,
+        "flash_launches_by_mask": by_mask, "checks": checks}))
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"whisper serve checks failed: {failed}")
+    out.setdefault("main_path_launches", {})[WHISPER] = {
+        "flash_attention_fwd": launches["flash_attention_fwd"]}
+    out.setdefault("flash_main_path_by_variant", {})[WHISPER] = by_variant
+    res = {"serve": {"requests": requests, "kernel_launches": launches,
+                     "flash_launches_by_mask": by_mask,
+                     "flash_launches_by_variant": by_variant}}
+    # bf16: kernel path against plain path, reported
+    bf16 = []
+    for toks, fr in zip(prompts, frames):
+        lk, _ = _whisper_prefill(kmodel, toks, fr)
+        lr, _ = _whisper_prefill(rmodel, toks, fr)
+        bf16.append({"S": toks.shape[1],
+                     "max_logit_diff": float((lk - lr).abs().max()),
+                     "same_first_token": int(lk.argmax())
+                     == int(lr.argmax()),
+                     "max_abs_logit": float(lr.abs().max())})
+    log("model " + json.dumps({"arch": WHISPER, "dtype": "bfloat16",
+                               "weights": "seeded", "reported": bf16}))
+    res["bfloat16_seeded"] = bf16
+    del kmodel, rmodel, serve_step
+    _free()
+    for weights in WHISPER_WEIGHTS:
+        res[f"float32_{weights}"] = _whisper_gate(weights, g)
+    if not any(res[f"float32_{w}"]["gated"] for w in WHISPER_WEIGHTS):
+        raise AssertionError("no float32 weight set of whisper-tiny was "
+                             "gated, so no planted fault was checked")
+    out[f"model_{WHISPER}"] = res
+
+
+def _whisper_batches(cfg, steps):
+    """The seeded training batches: SyntheticLM tokens and labels with
+    1,500 stub frames a sequence, on the card."""
+    import torch
+    from repro_torch.data import DataCfg, SyntheticLM
+    data = SyntheticLM(DataCfg(vocab=cfg.vocab, **WHISPER_TRAIN_DATA))
+    d = cfg.d_model
+    out = []
+    for step in range(steps):
+        b = data.frontend_batch(step, 0, 1, d, WHISPER_FRAMES,
+                                "frame_embeds")
+        out.append({"tokens": torch.from_numpy(b["tokens"]).to(
+                        "cuda", torch.long),
+                     "labels": torch.from_numpy(b["labels"]).to(
+                        "cuda", torch.long),
+                     "frame_embeds": torch.from_numpy(
+                        b["frame_embeds"]).to("cuda")})
+    return out
+
+
+def _whisper_train(model, opt_cfg, batches, fault=None):
+    """``make_train_step`` over ``batches`` from ``model``'s parameters:
+    ``{"steps": each step's loss, host wall and kernel counts (set to 0
+    before it), "history", "final_params"}``, the last two as
+    ``_parity`` reads a trainer's result.  ``fault`` plants
+    TRAIN_FAULTS["plain"] (``plain_scale_fault``) for this run."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.optim import OptCfg, make_optimizer
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+    opt = make_optimizer(OptCfg(**opt_cfg))
+    step_fn = make_train_step(model, opt)
+    params = tree_map(lambda p: p.detach(), model.params.to_dict())
+    state = opt.init(params)
+    steps = []
+    all_ops = _all_ops()
+    planted = (plain_scale_fault() if fault == TRAIN_FAULTS["plain"]
+               else contextlib.nullcontext())
+    with planted:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            for ops in all_ops.values():
+                ops.reset_counts()
+            t0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batch, i)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({
+                "step": i, "loss": loss,
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "kernel_launches": {k: o.kernel_launches
+                                    for k, o in all_ops.items()},
+                "plain_calls": {k: o.plain_calls for k, o in all_ops.items()},
+                "flash_launches_by_mask": dict(fa.launches_by_mask),
+                "flash_launches_by_variant": dict(fa.launches_by_variant),
+                "backward_by_path": dict(fa.backward_by_path)})
+    return {"steps": steps, "final_params": [params],
+            "history": [{"rank": 0, "step": st["step"], "loss": st["loss"]}
+                        for st in steps]}
+
+
+def phase_whisper_train(out):
+    """whisper-tiny trained at full width and depth through
+    ``make_train_step`` (bf16, AdamW, remat "full", WHISPER_TRAIN_STEPS
+    steps of B=4 x 1,500 frames and 448 tokens): 16 flash launches a step
+    (the 4 encoder and 4 decoder self-attention layers, forward and remat
+    recompute; half of them not causal), all tensor-core, 8 dense
+    backward recomputes, no plain call, finite losses near ln(vocab); the
+    step's wall and the peak.  Then float32 sgdm runs of 3 steps, kernel
+    path against plain path at phase 19's gate (weights at one layer's
+    fan-in), which must reject the plain attention's scale moved by 1%."""
+    import math
+    import torch
+    model = _full_model(WHISPER, "bfloat16", "kernel")
+    batches = _whisper_batches(model.cfg, WHISPER_TRAIN_STEPS)
+    n, vocab = model.cfg.n_layers, model.cfg.vocab
+    torch.cuda.reset_peak_memory_stats()
+    steps = _whisper_train(
+        model, {"name": "adamw", "peak_lr": 3e-4, "warmup": 2,
+                "total_steps": 100}, batches)["steps"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    _free()
+    launches = sum(s["kernel_launches"]["flash_attention_fwd"]
+                   for s in steps)
+    out.setdefault("main_path_launches", {})[f"{WHISPER}-train"] = {
+        "flash_attention_fwd": launches}
+    out.setdefault("flash_main_path_by_variant", {})[f"{WHISPER}-train"] = {
+        v: sum(s["flash_launches_by_variant"][v] for s in steps)
+        for v in FA_ENTRY}
+    row = {"arch": WHISPER, "card": out.get("card"), "dtype": "bfloat16",
+           "remat": "full", "optimizer": "adamw", "data": WHISPER_TRAIN_DATA,
+           "frames": WHISPER_FRAMES, "steps": steps,
+           "max_memory_allocated_gib": peak,
+           "ln_vocab": math.log(vocab)}
+    log("train " + json.dumps(row))
+    checks = {
+        f"{4 * n} flash launches a step": all(
+            s["kernel_launches"]["flash_attention_fwd"] == 4 * n
+            for s in steps),
+        f"{2 * n} non-causal and {2 * n} causal a step": all(
+            s["flash_launches_by_mask"] == {"causal": 2 * n,
+                                            "noncausal": 2 * n}
+            for s in steps),
+        "every launch mma_bf16": all(
+            s["flash_launches_by_variant"]["mma_bf16"] == 4 * n
+            for s in steps),
+        f"{2 * n} dense backward recomputes a step": all(
+            s["backward_by_path"] == {"dense": 2 * n, "chunked": 0}
+            for s in steps),
+        "no other kernel launched": all(
+            not any(c for k, c in s["kernel_launches"].items()
+                    if k != "flash_attention_fwd") for s in steps),
+        "plain_calls == 0": all(not any(s["plain_calls"].values())
+                                for s in steps),
+        "losses finite and within 2 of ln(vocab)": all(
+            math.isfinite(s["loss"])
+            and abs(s["loss"] - math.log(vocab)) < 2 for s in steps),
+    }
+    # float32 parity: kernel path against plain path, then the fault
+    kmodel = _full_model(WHISPER, "float32", "kernel")
+    _weight_set("layer_fan_in", kmodel)
+    tree = kmodel.params.to_dict()
+    batches = batches[:PARITY_STEPS]
+    runs = {"kernel": _whisper_train(kmodel, TRAIN_PARITY_OPT, batches)}
+    rmodel = _full_model(WHISPER, "float32", "ref", params=tree)
+    runs["plain"] = _whisper_train(rmodel, TRAIN_PARITY_OPT, batches)
+    fault = TRAIN_FAULTS["plain"]
+    runs[fault] = _whisper_train(rmodel, TRAIN_PARITY_OPT, batches,
+                                 fault=fault)
+    kernel = runs.pop("kernel")
+    report = {name: {"losses": [s["loss"] for s in r["steps"]],
+                     "gate": _parity(kernel, r)}
+              for name, r in runs.items()}
+    report["kernel"] = {"losses": [s["loss"] for s in kernel["steps"]],
+                        "flash_launches_by_variant": [
+                            s["flash_launches_by_variant"]
+                            for s in kernel["steps"]]}
+    log("train_parity " + json.dumps({
+        "arch": WHISPER, "dtype": "float32", "weights": "layer_fan_in",
+        "optimizer": TRAIN_PARITY_OPT, "steps": PARITY_STEPS, **report}))
+    checks.update({
+        "float32 kernel path == plain path":
+            not report["plain"]["gate"]["rejected"],
+        "the plain fault fails the gate": report[fault]["gate"]["rejected"],
+        "float32 launches all simt": all(
+            v["mma_bf16"] == 0
+            for v in report["kernel"]["flash_launches_by_variant"]),
+    })
+    del kmodel, rmodel, runs, kernel, tree
+    _free()
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"whisper train checks failed: {failed}")
+    out[f"train_{WHISPER}"] = {"bf16": row, "parity": report}
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -3399,6 +4000,8 @@ PHASES = {
          lambda out: phase_profile(out, DEEPSEEK)),
     40: ("gemma3-1b train at 8,192 tokens (remat, chunked attention)",
          phase_train_long),
+    41: ("whisper-tiny model and serve (main path)", phase_whisper),
+    42: ("whisper-tiny train", phase_whisper_train),
 }
 
 
@@ -3426,7 +4029,8 @@ def kernels_line(out):
     for name, source, replaces, rows, timed, tol, rule, keys in (
             ("flash_attention_fwd", FA_SOURCE, FA_REPLACES, fa_rows,
              fa_timed, TOL["bfloat16"],
-             f"|kernel - plain| <= {TOL['bfloat16']} * (1 + |plain|)",
+             f"|kernel - plain| <= {TOL['bfloat16']} * (1 + |plain|); "
+             f"not causal: <= {TOL['bfloat16']} * max|plain|",
              ("B", "S", "H", "KH", "D", "Dv", "window", "dtype")),
             ("ssd_fwd", SSD_SOURCE, SSD_REPLACES, ssd_rows, ssd_timed,
              ssd_timed["tol"] if ssd_timed else None,
@@ -3464,29 +4068,38 @@ def kernels_line(out):
             # granite-moe-1b-a400m's shape (H=16, KH=8, D=64), gemma2-2b's
             # (H=8, KH=4, D=256, softcap 50), stablelm-1.6b's (H=KH=32,
             # D=64) and deepseek-v3-671b's (H=KH=128, D=192, Dv=128), no
-            # window, at S=511, and starcoder2-15b's (H=48, KH=4, D=128,
-            # window 4096) at S=511 and WINDOW_S, timed as the entry's
+            # window, at S=511, starcoder2-15b's (H=48, KH=4, D=128,
+            # window 4096) at S=511 and WINDOW_S, and whisper-tiny's
+            # encoder (H=KH=6, D=64, not causal) at its 1,500 frames, bf16,
+            # timed as the entry's; whisper's launches are its served
+            # path's, and its trained path's under "whisper_train"
             window = STARCODER2_FA_SHAPE["window"]
-            for key, arch, S, w in (
+            for key, row_path, S, w in (
                     ("granite", GRANITE, TIMED[0], None),
                     ("gemma2", GEMMA2, TIMED[0], None),
                     ("stablelm", STABLELM, TIMED[0], None),
                     ("starcoder2", STARCODER2, TIMED[0], window),
                     ("starcoder2_long", STARCODER2, WINDOW_S, window),
-                    ("deepseek", DEEPSEEK, TIMED[0], None)):
-                g = next((r for r in rows if r["path"] == arch
-                          and r["S"] == S and r["window"] == w), None)
+                    ("deepseek", DEEPSEEK, TIMED[0], None),
+                    ("whisper", WHISPER, WHISPER_FRAMES, None),
+                    ("whisper_train", f"{WHISPER}-train", WHISPER_FRAMES,
+                     None)):
+                g = next((r for r in rows if r["path"] == row_path
+                          and r["S"] == S and r["window"] == w
+                          and r["dtype"] == "bfloat16"), None)
                 entry[key] = g and {
                     k: g.get(k) for k in (
                         "B", "S", "H", "KH", "D", "Dv", "window", "softcap",
-                        "dtype", "variant", "max_abs_err", "ms", "device_ms",
-                        "simt_ms", "simt_device_ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms", "library",
+                        "causal", "dtype", "variant", "max_abs_err", "ms",
+                        "device_ms", "simt_ms", "simt_device_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms", "library",
                         "library_max_abs_err", "library_nocap_ms",
                         "nocap_device_ms")}
                 if entry[key]:
-                    entry[key]["launches_by_variant"] = by_variant.get(arch)
-                    entry[key]["launches"] = by_path.get(arch, {}).get(name)
+                    entry[key]["launches_by_variant"] = by_variant.get(
+                        row_path)
+                    entry[key]["launches"] = by_path.get(row_path, {}).get(
+                        name)
             # the variant the timed shape launched, the main paths' launches
             # by variant summed, and the SIMT kernel on the same inputs
             entry["variant"] = timed["variant"] if timed else None

@@ -55,11 +55,18 @@ def params_to_numpy(model) -> Dict[str, Any]:
 
 def cache_from_jax_numpy(caches, device):
     """A reference cache tree (list per segment of per-unit dicts, numpy
-    leaves) as tensors."""
+    leaves) as tensors; or an encoder-decoder model's state ``(caches,
+    (k, v))`` (the stacked self-attention cache and every layer's cross
+    K/V), tuples kept as tuples."""
+    if isinstance(caches, tuple):
+        return tuple(cache_from_jax_numpy(c, device) for c in caches)
     return tree_map(lambda a: tensor_from_numpy(a, device), caches)
 
 
 def cache_to_numpy(caches):
+    """Inverse of :func:`cache_from_jax_numpy`: numpy leaves, tuples kept."""
+    if isinstance(caches, tuple):
+        return tuple(cache_to_numpy(c) for c in caches)
     return tree_map(tensor_to_numpy, caches)
 
 

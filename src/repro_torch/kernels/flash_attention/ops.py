@@ -9,9 +9,10 @@ head dim D, v (and the output) its own, Dv, as in the TPU kernel: the
 are built (MLA's (192, 128) among them); any other pair raises.  On CUDA
 tensors :func:`flash_attention` launches a hand-written Hopper kernel
 (``csrc/flash_attention_fwd.cu``) on the current stream and counts the
-launch in :data:`kernel_launches` and :data:`launches_by_variant`; on CPU
-tensors it runs the plain version (:mod:`.ref`) and counts
-:data:`plain_calls`.  There is no fallback between the two: a CUDA call the
+launch once, in :data:`launches_by_kind` by variant and mask (causal or
+not), from which ``kernel_launches``, ``launches_by_variant`` and
+``launches_by_mask`` are summed; on CPU tensors it runs the plain version
+(:mod:`.ref`) and counts :data:`plain_calls`.  There is no fallback between the two: a CUDA call the
 kernel does not take raises.
 
 Two kernels compute it, and :func:`variant` picks one from the inputs
@@ -43,13 +44,13 @@ import torch
 from .. import _build
 from . import ref as _ref
 
-#: launches of the CUDA kernel in this process (one per call on the card)
-kernel_launches = 0
 #: calls answered by the plain version (CPU tensors)
 plain_calls = 0
 VARIANTS = ("mma_bf16", "simt")
-#: kernel launches in this process by variant
-launches_by_variant = dict.fromkeys(VARIANTS, 0)
+MASKS = ("causal", "noncausal")
+#: launches of the CUDA kernel in this process (one per call on the card)
+#: by (variant, mask): causal, or not (an encoder's)
+launches_by_kind = {(v, m): 0 for v in VARIANTS for m in MASKS}
 BACKWARD_PATHS = ("dense", "chunked")
 #: backward passes, each a recompute of a plain version under autograd, by
 #: the plain version it recomputed
@@ -72,30 +73,38 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
-    global kernel_launches, plain_calls
+    global plain_calls
     with _count_lock:
-        kernel_launches = 0
         plain_calls = 0
-        for v in VARIANTS:
-            launches_by_variant[v] = 0
+        for key in launches_by_kind:
+            launches_by_kind[key] = 0
         for p in BACKWARD_PATHS:
             backward_by_path[p] = 0
 
 
 def __getattr__(name):
-    # backward_recomputes: every backward pass, whichever path it took
+    # sums of the one launch counter, and of the backward passes: a fresh
+    # dict or int on each read
+    if name == "kernel_launches":
+        return sum(launches_by_kind.values())
+    if name == "launches_by_variant":
+        return {v: sum(launches_by_kind[v, m] for m in MASKS)
+                for v in VARIANTS}
+    if name == "launches_by_mask":
+        return {m: sum(launches_by_kind[v, m] for v in VARIANTS)
+                for m in MASKS}
     if name == "backward_recomputes":
         return sum(backward_by_path.values())
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def _count(kernel: Optional[str]) -> None:
-    """One kernel launch of variant ``kernel``, or (None) one plain call."""
-    global kernel_launches, plain_calls
+def _count(kernel: Optional[str], causal: bool = True) -> None:
+    """One kernel launch of variant ``kernel`` (causal or not), or (None)
+    one plain call."""
+    global plain_calls
     with _count_lock:
         if kernel:
-            kernel_launches += 1
-            launches_by_variant[kernel] += 1
+            launches_by_kind[kernel, "causal" if causal else "noncausal"] += 1
         else:
             plain_calls += 1
 
@@ -222,7 +231,7 @@ def _launch(kind: Optional[str], q, k, v, *, scale: float, causal: bool,
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention_fwd ({kind}) launch failed "
                            f"({rc}): {msg}")
-    _count(kind)
+    _count(kind, bool(causal))
     return out
 
 

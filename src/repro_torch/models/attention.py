@@ -11,9 +11,12 @@ reference builds a new cache array: the returned cache is the one passed in.
 
 Which attention runs:
 
-* no cache (training, ``loss``): causal attention through
+* no cache (training, ``loss``, and the encoder of an encoder-decoder
+  model): attention through
   :func:`repro_torch.kernels.flash_attention.ops.flash_attention` when
-  ``cfg.attn_impl == "kernel"``; otherwise :func:`chunked_attention` (the
+  ``cfg.attn_impl == "kernel"``, causal or not (``kind == "enc"`` is the
+  encoder's non-causal attention; the reference computes that one plain,
+  the same function); otherwise :func:`chunked_attention` (the
   plain chunked version, kept beside the kernel's in
   ``kernels/flash_attention/ref.py``) at lengths :func:`use_chunked` takes
   (S >= ``CHUNKED_THRESHOLD`` and a multiple of ``CHUNK``), else
@@ -101,7 +104,8 @@ def gqa_specs(cfg: ModelCfg) -> Dict[str, P]:
 def gqa_apply(p, x, *, cfg: ModelCfg, kind: str, positions,
               cache: Optional[dict] = None, fresh_cache: bool = False
               ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """kind: 'attn' (global) or 'local' (window=cfg.window).
+    """kind: 'attn' (global), 'local' (window=cfg.window) or 'enc' (an
+    encoder's: global and not causal, without a cache).
 
     positions: (B, S) int absolute positions of x's tokens.
     cache: {'k','v': (B, L, KH, D), 'pos': (B, L)} or None (training).
@@ -155,8 +159,8 @@ def gqa_apply(p, x, *, cfg: ModelCfg, kind: str, positions,
 
 def _train_attention(q, k, v, *, scale, positions, window, cfg: ModelCfg,
                      causal: bool = True):
-    if cfg.attn_impl == "kernel" and causal:
-        return flash_ops.flash_attention(q, k, v, scale=scale, causal=True,
+    if cfg.attn_impl == "kernel":
+        return flash_ops.flash_attention(q, k, v, scale=scale, causal=causal,
                                          window=window,
                                          softcap=cfg.attn_softcap)
     if use_chunked(q.shape[1]):

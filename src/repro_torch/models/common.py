@@ -10,8 +10,10 @@ norms compute in float32 and cast back, rotary computes in float32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -119,6 +121,26 @@ def rotary(x, positions, *, theta: float = 10000.0, fraction: float = 1.0):
     return torch.cat([out, x_pass], dim=-1) if rot < hd else out
 
 
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(length: int, dim: int) -> np.ndarray:
+    half = dim // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    pos = np.arange(length)[:, None] * freq[None, :]
+    table = np.concatenate([np.sin(pos), np.cos(pos)], axis=1)
+    table = table.astype(np.float32)
+    table.flags.writeable = False
+    return table
+
+
+def sinusoid_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (any length), (length,
+    dim) float32: computed in numpy float64 and rounded to float32, as the
+    reference computes them, so the two tables are equal bit for bit.  The
+    host table is kept per (length, dim); each call copies it to
+    ``device``."""
+    return torch.tensor(_sinusoid_table(length, dim), device=device)
+
+
 def gelu(x):
     return F.gelu(x, approximate="tanh")
 
@@ -134,5 +156,5 @@ def softplus(x):
 
 
 __all__ = ["P", "stack_spec", "init_param", "init_tree",
-           "rms_norm", "layer_norm", "softcap", "rotary", "gelu", "silu",
-           "softplus"]
+           "rms_norm", "layer_norm", "softcap", "rotary",
+           "sinusoid_positions", "gelu", "silu", "softplus"]

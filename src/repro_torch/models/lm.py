@@ -14,9 +14,11 @@ MLP half is a dense MLP, a Mixture-of-Experts layer (:mod:`.moe`;
 ``dense_big`` for an MoE model's leading dense layers) or, for
 ``mlp == "none"`` (Mamba-2), absent.  DeepSeek-V3's multi-token prediction
 (``mtp_depth``) adds one layer of the last layer's kind to the loss; the
-serving path never reads it.  Encoder-decoder models raise
-NotImplementedError, and so does ``loss`` of a model with a frontend
-(its patch or frame prefix is not ported).
+serving path never reads it.  A vision frontend's stub patch embeddings
+(``patch_embeds``, (B, P, d)) are a prefix: ``loss`` and ``prefill``
+prepend them to the embedded tokens and run positions over P + S, and
+``loss`` drops the first P hidden rows.  Encoder-decoder models are
+:class:`repro_torch.models.encdec.EncDecLM`.
 
 Remat, as the reference's ``jax.checkpoint`` of each ``_unit_body``: when
 autograd is on and no cache is passed (training), each *unit* (the layers
@@ -295,8 +297,8 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelCfg):
         super().__init__()
         if cfg.encdec:
-            raise NotImplementedError(_LATER.format(
-                "encoder-decoder models"))
+            raise ValueError(f"{cfg.name}: an encoder-decoder config "
+                             f"builds EncDecLM")
         self.cfg = cfg
         self.descs = self._descs()
         self.segments = build_segments(self.descs)
@@ -435,20 +437,23 @@ class TransformerLM(nn.Module):
         return softcap(lg, self.cfg.final_softcap)
 
     def _positions(self, tokens):
-        B, S = tokens.shape
+        B, S = tokens.shape[:2]
         return torch.arange(S, dtype=torch.int32,
                             device=tokens.device)[None].expand(B, S)
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {'tokens': (B,S), 'labels': (B,S)} integer tensors.
-        A model with a frontend raises NotImplementedError: the reference
-        prepends ``batch["patch_embeds"]``, which the port does not yet."""
-        if self.cfg.frontend != "none":
-            raise NotImplementedError(_LATER.format(
-                f"the {self.cfg.frontend} frontend's prefix in loss"))
+        """batch: {'tokens': (B,S), 'labels': (B,S)} integer tensors, and
+        for a vision frontend 'patch_embeds': (B, P, d), whose P hidden rows
+        are dropped before the logits."""
         tokens = batch["tokens"]
         x = self.embed(tokens)
-        h, _, aux = self.forward(x, positions=self._positions(tokens))
+        offset = 0
+        if self.cfg.frontend == "vision":
+            pe = batch["patch_embeds"]
+            x = torch.cat([pe.to(x.dtype), x], dim=1)
+            offset = pe.shape[1]
+        h, _, aux = self.forward(x, positions=self._positions(x))
+        h = h[:, offset:]
         ce = _xent(self.logits(h), batch["labels"])
         loss, metrics = ce + 0.001 * aux, {"ce": ce, "aux": aux}
         if self.cfg.mtp_depth:
@@ -493,26 +498,29 @@ class TransformerLM(nn.Module):
                                  dtype=s.dtype or self.dtype, device=device),
             specs)
 
-    def prefill(self, tokens, caches):
-        """Forward over a prompt from position 0; returns (last_logits,
-        caches).  Attention caches must be empty (``init_cache``), else
-        ValueError: attention then runs as causal self-attention over the
-        prompt, which is what attending over an empty cache is.  A prompt
-        longer than an attention cache is refused too, before any layer
-        writes its cache.  An SSD or RG-LRU cache needs no check: its scan
-        continues from whatever state the cache holds, as the reference's
-        does."""
+    def prefill(self, tokens, caches, *, patch_embeds=None):
+        """Forward over a prompt from position 0 (a vision frontend's
+        ``patch_embeds`` (B, P, d) first, where given); returns
+        (last_logits, caches).  Attention caches must be empty
+        (``init_cache``), else ValueError: attention then runs as causal
+        self-attention over the prompt, which is what attending over an
+        empty cache is.  A prompt (prefix included) longer than an
+        attention cache is refused too, before any layer writes its cache.
+        An SSD or RG-LRU cache needs no check: its scan continues from
+        whatever state the cache holds, as the reference's does."""
         attn = [u for seg in caches for u in seg if "pos" in u]
         if attn and bool((torch.stack([u["pos"].max() for u in attn])
                           >= 0).any()):
             raise ValueError("prefill needs empty caches (init_cache)")
         # every attention cache (GQA K/V, MLA latent) has pos (..., B, L)
-        L = min((u["pos"].shape[-1] for u in attn), default=None)
-        if L is not None and tokens.shape[1] > L:
-            raise ValueError(f"{tokens.shape[1]} tokens do not fit an "
-                             f"attention cache of length {L}")
         x = self.embed(tokens)
-        h, caches, _ = self.forward(x, positions=self._positions(tokens),
+        if self.cfg.frontend == "vision" and patch_embeds is not None:
+            x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        L = min((u["pos"].shape[-1] for u in attn), default=None)
+        if L is not None and x.shape[1] > L:
+            raise ValueError(f"{x.shape[1]} tokens do not fit an "
+                             f"attention cache of length {L}")
+        h, caches, _ = self.forward(x, positions=self._positions(x),
                                     caches=caches, fresh_cache=True)
         return self.logits(h[:, -1:]), caches
 

@@ -80,17 +80,29 @@ def make_train_step(model, opt: Optimizer, *, microbatches: int = 1,
 
 
 def make_prefill_step(model, *, max_len: Optional[int] = None) -> Callable:
-    """prefill_step(tokens) -> (last_logits, cache).
+    """prefill_step(tokens, *, frame_embeds=None, patch_embeds=None) ->
+    (last_logits, cache).
 
-    ``max_len`` overrides the cache length (default: exactly the prompt).
-    The serving engine passes its decode-cache length here so a prefilled
-    single-request cache has the same per-layer shapes as one batch slot
-    of the decode cache and can be spliced in directly."""
+    The stub frontends' embeddings go where the reference's batch sends
+    them: ``frame_embeds`` (B, S_enc, d) to an encoder-decoder model's
+    encoder (its cache is then ``(caches, cross_kv)``), ``patch_embeds``
+    (B, P, d) ahead of a vision model's prompt, which lengthens the
+    default cache by P.  ``max_len`` overrides the cache length (default:
+    exactly the prompt).  The serving engine passes its decode-cache
+    length here so a prefilled single-request cache has the same
+    per-layer shapes as one batch slot of the decode cache and can be
+    spliced in directly."""
 
-    def prefill_step(tokens):
+    def prefill_step(tokens, *, frame_embeds=None, patch_embeds=None):
         B, S = tokens.shape
+        extra = {}
+        if frame_embeds is not None:
+            extra["frame_embeds"] = frame_embeds
+        if patch_embeds is not None:
+            extra["patch_embeds"] = patch_embeds
+            S += patch_embeds.shape[1]
         caches = model.init_cache(B, max_len or S, device=tokens.device)
-        return model.prefill(tokens, caches)
+        return model.prefill(tokens, caches, **extra)
 
     return prefill_step
 

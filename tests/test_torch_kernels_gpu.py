@@ -182,6 +182,56 @@ def _variants_match_plain(cuda, B, S, H, KH, D, window, softcap, seed,
                                    atol=TOL["bfloat16"], err_msg=kind)
 
 
+# whisper-tiny's encoder: not causal, B=1, 6 heads, 6 KV heads of 64, at
+# 100, 1,500 (its frames; a ragged tail of 28 rows) and 4,096 tokens
+NONCAUSAL_S = (100, 1500, 4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", NONCAUSAL_S)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_non_causal_matches_plain(cuda, S, dtype):
+    """Non-causal calls at whisper's encoder shape, in the model's layout:
+    bf16 through both variants (the private ``_launch``), float32 through
+    the public wrapper (the SIMT kernel), each within its dtype's
+    tolerance times max|plain| of the plain version with ``causal=False``
+    (the outputs average over S keys, ~sqrt(e / S) in size), and each
+    outside that limit of the plain version with a causal mask planted
+    and of the one with the last key dropped."""
+    rng = np.random.default_rng(S * 41)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, 6, 64),
+                                                    dtype=np.float32))
+               .to(device=cuda, dtype=getattr(torch, dtype))
+               for _ in range(3))
+    kw = dict(scale=64 ** -0.5, causal=False)
+    want = tfa.attention_ref(q, k, v, **kw).float().cpu().numpy()
+    qf, kf, vf = (t.float().cpu() for t in (q, k, v))
+    dropped = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(
+        torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, :-1]) * kw["scale"], -1),
+        vf[:, :-1]).numpy()
+    faults = (tfa.attention_ref(q, k, v, scale=kw["scale"],
+                                causal=True).float().cpu().numpy(), dropped)
+    tol = TOL[dtype]
+    kinds = tfa.VARIANTS if dtype == "bfloat16" else ("simt",)
+    for kind in kinds:
+        before = dict(tfa.launches_by_variant)
+        masks = dict(tfa.launches_by_mask)
+        if dtype == "bfloat16":
+            out = tfa._launch(kind, *(t.transpose(1, 2) for t in (q, k, v)),
+                              window=None, softcap=None, out=None,
+                              **kw).transpose(1, 2)
+        else:
+            out = tfa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert tfa.launches_by_variant[kind] == before[kind] + 1
+        assert tfa.launches_by_mask == dict(
+            masks, noncausal=masks["noncausal"] + 1)
+        got = out.float().cpu().numpy()
+        assert np.abs(got - want).max() <= tol * np.abs(want).max(), kind
+        for fault in faults:
+            assert np.abs(got - fault).max() > tol * np.abs(fault).max()
+
+
 @pytest.mark.gpu
 def test_flash_mma_refuses_float32_and_misaligned_rows(cuda):
     q = torch.zeros(1, 2, 8, 64, device=cuda)

@@ -819,13 +819,17 @@ def test_remat_saved_bytes_order(models):
 
 
 def test_vision_loss_raises():
-    """Reduced internvl2-76b: the port does not prepend ``patch_embeds``
-    (the reference's ``loss`` does), so its ``loss`` raises, with or
-    without them, rather than drop them."""
+    """Reduced internvl2-76b: ``loss`` prepends ``batch["patch_embeds"]``,
+    as the reference's does, so without them it raises KeyError (as the
+    reference's does) rather than run the text alone; with them it runs
+    (held to the reference in ``test_torch_encdec.py``)."""
     cfg = reduce_cfg(ARCHS["internvl2-76b"].cfg)
     assert cfg.frontend == "vision"
     m = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((2, 16), dtype=torch.long)
-    for extra in ({}, {"patch_embeds": torch.zeros((2, 4, cfg.d_model))}):
-        with pytest.raises(NotImplementedError, match="vision frontend"):
-            m.loss({"tokens": toks, "labels": toks, **extra})
+    with pytest.raises(KeyError, match="patch_embeds"):
+        m.loss({"tokens": toks, "labels": toks})
+    with torch.no_grad():
+        loss, _ = m.loss({"tokens": toks, "labels": toks,
+                          "patch_embeds": torch.zeros((2, 4, cfg.d_model))})
+    assert torch.isfinite(loss)
