@@ -8,7 +8,7 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Twelve main paths are driven, each at full width, all but
+raise on failure.  Thirteen main paths are driven, each at full width, all but
 deepseek-v3-671b at full depth: serving gemma3-1b (flash attention),
 mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
@@ -22,9 +22,11 @@ biases, the plain GELU MLP), deepseek-v3-671b cut to its first 4 layers
 q/k head dim 192 and v head dim 128; 256 experts top-8, a sigmoid router
 and a shared expert), and training gemma3-1b (flash attention in every
 forward and in every remat recompute), at 512 tokens a sequence and at
-8,192, where training attention is chunked, and serving and training
+8,192, where training attention is chunked, serving and training
 whisper-tiny (the encoder-decoder model: flash attention not causal in
-every encoder layer, causal in every decoder self-attention layer):
+every encoder layer, causal in every decoder self-attention layer), and
+training mamba2-370m at 4,096 tokens a sequence (the SSD scan in every
+forward and every remat recompute):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -71,7 +73,11 @@ every encoder layer, causal in every decoder self-attention layer):
    shapes, the SIMT kernel for float32), timed as in phase 3 beside the
    SIMT kernel on the same inputs (no single PyTorch call computes this
    function, so it has no library time); the same check must reject
-   faults planted in the plain scan;
+   faults planted in the plain scan; then the training path's shapes
+   (B=2, T = 512 and 4,096, bf16 and float32), each with a gradient
+   check: the grads through ``ops.ssd`` (the kernel forward, the plain
+   scan recomputed in the backward) against the plain scan's autograd,
+   which must reject the term between chunks dropped;
 9. mamba2-370m: prefill through the SSD kernel against prefill through the
    plain scan, float32 (gated, with the reference's init and again with
    Mamba-2's init of a_log and dt_bias) and bfloat16 (reported); the
@@ -114,10 +120,10 @@ every encoder layer, causal in every decoder self-attention layer):
     into forward and backward,
     the grads' copy to the host, the quorum reduce, the copy back and the
     update (host clock), the forward and backward under the profiler,
-    peak device memory and peak RSS; then float32 runs, the kernel path
-    against the plain path (loss history and weights), with a fault
-    planted in the plain path and one that skips the grad average, each of
-    which the gate must reject;
+    peak device memory and peak RSS; then float32 runs at 6 layers (one
+    unit of the pattern), the kernel path against the plain path (loss
+    history and weights), with a fault planted in the plain path and one
+    that skips the grad average, each of which the gate must reject;
 20. granite-moe-1b-a400m: prefill through the kernel against prefill
     through plain attention, the plain path's routers held to the kernel
     path's expert choices (the tokens whose own top-8 differs counted),
@@ -225,7 +231,20 @@ every encoder layer, causal in every decoder self-attention layer):
     backward recomputes, no plain call, finite losses near ln(vocab), each
     step's wall and the peak; then float32 sgdm runs of 3 steps, kernel
     path against plain path at phase 19's gate, which must reject a
-    1.01 x plain attention scale.
+    1.01 x plain attention scale;
+43. mamba2-370m trained at full size (``EventDrivenTrainer.run``,
+    in-proc, 2 ranks, AdamW, bf16, remat "full", 4 steps of 2 sequences
+    of 4,096 tokens a rank): 96 SSD launches a rank-step (48 in the
+    forward, 48 again in the remat recompute), all ``mma_bf16``, 48 plain
+    recomputes a backward (``ops.backward_recomputes``), no other kernel
+    and no plain call, finite losses near ln(vocab), bit-equal replicas;
+    the step split as in phase 19; then float32 sgdm runs of 3 steps at
+    512 tokens and 12 layers from Mamba-2's init of a_log and dt_bias, the
+    plain path's float64 floor first (above the gate, stacked leaves at
+    one layer's fan-in are tried instead), then the kernel path (every SSD
+    launch SIMT) against the plain path at phase 19's gate, which must
+    reject the term between chunks dropped and the grads left unaveraged,
+    and pass the chunk-by-chunk control.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -276,10 +295,11 @@ PATH_WINDOWS = (512, None)
 TIMED = (511, 512)        # the shape whose times stand in the kernels line
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the device function of each flash kernel variant, as the profiler names
-# it (neither name holds the other), and the variant each dtype takes on
-# every path (the paths' tensors are 16-byte aligned)
+# it (neither name holds the other)
 FA_ENTRY = {"mma_bf16": "fa_mma_bf16_kernel", "simt": "fa_fwd_kernel"}
-FA_PATH_VARIANT = {"bfloat16": "mma_bf16", "float32": "simt"}
+# the variant each dtype takes on every path, flash attention's and the SSD
+# scan's alike (the paths' tensors are 16-byte aligned)
+PATH_VARIANT = {"bfloat16": "mma_bf16", "float32": "simt"}
 
 SSD_SOURCE = "src/repro_torch/csrc/ssd_fwd.cu"
 SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:68"
@@ -312,6 +332,21 @@ SSD_TOL = 1e-4
 SSD_ENTRY = {"mma_bf16": "ssd_mma_bf16_kernel", "simt": "ssd_fwd_kernel"}
 
 GEMMA, MAMBA, RGEMMA = "gemma3-1b", "mamba2-370m", "recurrentgemma-9b"
+# the training path's shapes (phase 43): mamba2-370m, B=2 sequences a rank,
+# no initial state, T = 512 (the float32 parity runs) and 4,096 (the bf16
+# run, the reference's train_4k), bf16 through the tensor cores and float32
+# through SIMT
+SSD_TRAIN_PATH = f"{MAMBA}-train"
+SSD_TRAIN_T = (512, 4096)
+# the SSD gradient check: the grads of L = sum(w * y), w seeded, through
+# the kernel path (``ops.ssd``: the kernel forward, the plain scan
+# recomputed under autograd in the backward) against the plain scan's own
+# autograd, on the same inputs.  L is linear in y, so both backwards get
+# the same upstream w and run the same plain scan on the same inputs: the
+# grads never see the kernel's output, and each must equal its plain grad
+# bit for bit, in its input's dtype.  The check covers the backward's
+# wiring (the saved inputs, the grads' dtypes, the recompute counted), not
+# the kernel, which the forward rows hold to SSD_TOL
 # the kernel each kind of layer launches once a prefill
 KIND_KERNEL = {"attn": "flash_attention_fwd", "local": "flash_attention_fwd",
                "mla": "flash_attention_fwd", "ssd": "ssd_fwd",
@@ -863,14 +898,14 @@ def phase_kernels(out):
         # every case here is aligned: bf16 takes the tensor cores
         row.update(variant=ran[0] if len(ran) == 1 else ran,
                    max_abs_err=err, tol=tol,
-                   ok=ok and ran == [FA_PATH_VARIANT[c["dtype"]]],
+                   ok=ok and ran == [PATH_VARIANT[c["dtype"]]],
                    path=c.get("path", False))   # False, or the path's arch
         if row["path"]:
             # the SIMT kernel on the same inputs, held to the same gate
             simt = ops._launch("simt", q, k, v, out=None, **kw)
             row["simt_max_abs_err"], simt_ok = within(simt)
             row["ok"] = row["ok"] and simt_ok
-            for key, v2 in (("", FA_PATH_VARIANT[c["dtype"]]),
+            for key, v2 in (("", PATH_VARIANT[c["dtype"]]),
                             ("simt_", "simt")):
                 row[key + "ms"] = cuda_ms(lambda: ops._launch(
                     v2, q, k, v, out=None, **kw))
@@ -893,9 +928,9 @@ def phase_kernels(out):
                 # the softcap costs it
                 nocap = dict(kw, softcap=None)
                 row["nocap_device_ms"], *_ = kernel_device_ms(
-                    lambda: ops._launch(FA_PATH_VARIANT[c["dtype"]], q, k, v,
+                    lambda: ops._launch(PATH_VARIANT[c["dtype"]], q, k, v,
                                         out=None, **nocap),
-                    FA_ENTRY[FA_PATH_VARIANT[c["dtype"]]])
+                    FA_ENTRY[PATH_VARIANT[c["dtype"]]])
             # the yardstick is held to the plain version at the same gate
             row["library_max_abs_err"], library_ok = within(library())
             row["ok"] = row["ok"] and library_ok
@@ -1221,7 +1256,7 @@ def phase_model(out, arch):
                                      f"called plain versions {plain}, not "
                                      f"{expected} launches and none")
             # bf16 flash takes the tensor cores, float32 the SIMT kernel
-            if fa_by_variant[FA_PATH_VARIANT[dtype]] != launched.get(
+            if fa_by_variant[PATH_VARIANT[dtype]] != launched.get(
                     "flash_attention_fwd", 0):
                 raise AssertionError(f"{dtype} prefill launched flash "
                                      f"variants {fa_by_variant}")
@@ -1370,11 +1405,11 @@ def _window_check(arch, control):
         if not torch.isfinite(lk).all():
             raise AssertionError(f"non-finite logits: {row}")
         if (launched != {"flash_attention_fwd": WINDOW_LAYERS} or plain
-                or fa_by_variant[FA_PATH_VARIANT[dtype]] != WINDOW_LAYERS):
+                or fa_by_variant[PATH_VARIANT[dtype]] != WINDOW_LAYERS):
             raise AssertionError(f"the forward launched {launched} (by "
                                  f"variant {fa_by_variant}) and called plain "
                                  f"versions {plain}, not {WINDOW_LAYERS} "
-                                 f"{FA_PATH_VARIANT[dtype]} launches")
+                                 f"{PATH_VARIANT[dtype]} launches")
         if row["gated"] and (row["max_logit_diff"] > LOGIT_TOL
                              or row["argmax_differs_at"]):
             raise AssertionError(f"float32 kernel path disagrees past the "
@@ -2011,7 +2046,7 @@ def phase_serve(out, arch):
                             "flash_launches_by_variant": fa_by_variant,
                             "plain_calls": plain}
     if "ssd_fwd" in expected:
-        out["ssd_main_path_by_variant"] = ssd_by_variant
+        out.setdefault("ssd_main_path_by_variant", {})[arch] = ssd_by_variant
     if "flash_attention_fwd" in expected:
         out.setdefault("flash_main_path_by_variant", {})[arch] = fa_by_variant
     out.setdefault("main_path_launches", {})[arch] = {
@@ -2525,6 +2560,54 @@ def _scaled_err(got, want):
     return err, limit, err <= limit
 
 
+def _ssd_grads(scan, x, dt, a_log, b, c, w):
+    """The grads of sum(w * y) for x, dt, a_log, b, c, y = ``scan``'s."""
+    import torch
+    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+    y = scan(*ins)
+    return torch.autograd.grad((y * w).sum(), ins)
+
+
+def _ssd_grad_check(x, dt, a_log, b, c, chunk, variant, seed):
+    """The SSD gradient check (see SSD_TRAIN_T) on these inputs: whether
+    each input's grad equals the plain one and its max abs error, the
+    kernel variant the forward launched (it must be ``variant``), one
+    backward recompute counted, and the plain side's scan with the term
+    between chunks dropped (``_faulty_ssd``), which it must reject."""
+    import torch
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_padded_reference
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(x.shape, generator=g, device="cuda")
+    before = (dict(ops.launches_by_variant), ops.backward_recomputes)
+    got = _ssd_grads(lambda *a: ops.ssd(*a, chunk=chunk), x, dt, a_log, b,
+                     c, w)
+    torch.cuda.synchronize()
+    ran = [v for v, k in ops.launches_by_variant.items()
+           if k != before[0][v]]
+    recomputes = ops.backward_recomputes - before[1]
+
+    def errors(plain):
+        want = _ssd_grads(plain, x, dt, a_log, b, c, w)
+        return {name: (float((a.float() - e.float()).abs().max()),
+                       a.dtype == e.dtype and torch.equal(a, e))
+                for name, a, e in zip(("x", "dt", "a_log", "b", "c"), got,
+                                      want)}
+    sound = errors(lambda *a: ssd_padded_reference(*a, chunk=chunk)[0])
+    fault = errors(lambda *a: _faulty_ssd(SSD_TRAIN_FAULT, *a,
+                                          chunk=chunk)[0])
+    rejected = not all(e[1] for e in fault.values())
+    ok = (all(e[1] for e in sound.values()) and recomputes == 1
+          and ran == [variant] and rejected)
+    return {"max_abs_err": {k: e[0] for k, e in sound.items()},
+            "equal": {k: e[1] for k, e in sound.items()},
+            "variant": ran, "backward_recomputes": recomputes,
+            "planted_faults": {SSD_TRAIN_FAULT: {
+                "max_abs_err": {k: e[0] for k, e in fault.items()},
+                "rejected": rejected}},
+            "ok": ok}
+
+
 def phase_ssd(out):
     import torch
     from repro_torch.kernels.ssd import ops
@@ -2532,9 +2615,12 @@ def phase_ssd(out):
     cases = [dict(B=B, T=T, H=H, G=G, N=N, P=P, chunk=q, dtype=dt, init=i)
              for (B, T, H, G, N, P, q, dt, i) in SSD_CASES]
     cases += [dict(B=1, T=T, H=32, G=1, N=128, P=64, chunk=128,
-                   dtype="bfloat16", init=True, path=True)
+                   dtype="bfloat16", init=True, path=MAMBA)
               for T in SSD_PATH_T]
     cases.append(dict(cases[-1], path=False, dt_shift=DT_SHIFT))
+    cases += [dict(B=2, T=T, H=32, G=1, N=128, P=64, chunk=128, dtype=dt,
+                   init=False, path=SSD_TRAIN_PATH)
+              for T in SSD_TRAIN_T for dt in ("bfloat16", "float32")]
     rows = []
     for n, c in enumerate(cases):
         x, dt, a_log, b, cc, s0 = _ssd_inputs(
@@ -2561,12 +2647,13 @@ def phase_ssd(out):
                    tol_state=lim_s,
                    ok=ok_y and ok_s and ran == [chosen],
                    path=c.get("path", False))
-        if row["path"] and row["variant"] != "mma_bf16":
-            row["ok"] = False              # the serving path's case
+        if row["path"] and row["variant"] != PATH_VARIANT[c["dtype"]]:
+            row["ok"] = False              # a path's case
         if row["path"]:
             kw = dict(chunk=c["chunk"], init_state=s0)
             # the chosen kernel, then the SIMT kernel on the same inputs
-            for key, v in (("", chosen), ("simt_", "simt")):
+            for key, v in (("", chosen), ("simt_", "simt"))[
+                    :1 if chosen == "simt" else 2]:
                 row[key + "ms"] = cuda_ms(lambda: ops.ssd_fwd(
                     x, dt, a_log, b, cc, kernel=v, **kw))
                 (row[key + "device_ms"],
@@ -2581,6 +2668,12 @@ def phase_ssd(out):
             row.update(ssd_bound(c["B"], c["T"], c["H"], c["G"], c["N"],
                                  c["P"], c["chunk"], c["dtype"],
                                  c["init"]))
+        if row["path"] == SSD_TRAIN_PATH:
+            row["grad_check"] = _ssd_grad_check(
+                x, dt, a_log, b, cc, c["chunk"], PATH_VARIANT[c["dtype"]],
+                seed=200 + n)
+            if not row["grad_check"]["ok"]:
+                row["ok"] = False
         if c["T"] == SSD_TIMED_T:
             # this check must pass the control and reject each fault
             row["planted_faults"] = {}
@@ -2961,30 +3054,68 @@ TRAIN_PARITY_OPT = dict(name="sgdm", peak_lr=1.0, warmup=1, total_steps=100,
                         clip_norm=1.0)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6
+# the float32 runs' depth, cut to keep the whole smoke run in its time
+# limit (the bf16 main-path runs keep their full depth): gemma3-1b to one
+# unit of its pattern (5 local layers and 1 global), mamba2-370m to 12
+# of its 48 SSD layers; at full width both, and each cut config draws its
+# own init (the stacked leaves at the cut layers axis' fan-in)
+PARITY_CUTS = {GEMMA: dict(n_layers=6), MAMBA: dict(n_layers=12)}
 TRAIN_FAULTS = {"plain": "attention_scale_x1.01",
                 "replicas": "own_grads_only",
                 "chunked": "chunked_window_plus_1"}
 
 
-def _train_run(dtype, attn_impl, opt, steps, fault=None, data=TRAIN_DATA,
-               ranks=TRAIN_RANKS):
-    """One in-proc EventDrivenTrainer.run of full-width gemma3-1b (its
-    config's remat, "full") on the card, ``ranks`` ranks on ``data``;
-    ``fault`` plants one of TRAIN_FAULTS for this run only.  Returns
+def _train_fault(fault):
+    """A context that plants ``fault`` for one trainer run: TRAIN_FAULTS'
+    attention faults, or one of SSD_FAULTS (or the control SSD_CONTROL) in
+    the plain SSD scan; None plants nothing."""
+    if fault == TRAIN_FAULTS["chunked"]:
+        return chunked_fault()
+    if fault == TRAIN_FAULTS["plain"]:
+        return plain_scale_fault()
+    if fault in (SSD_CONTROL,) + SSD_FAULTS:
+        return _scan_fault("mamba2", _faulty_scan)(fault)
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _float_as_double():
+    """While open, ``Tensor.float()`` widens to float64: a float64 model's
+    float32 cast points (the softplus of dt, the SSD scan, the norms, the
+    logits) stay float64, so its plain path computes in float64 throughout,
+    and so do its grads on the way to the host (``_host32``)."""
+    import torch
+    widen, torch.Tensor.float = torch.Tensor.float, torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = widen
+
+
+def _train_run(arch, dtype, attn_impl, opt, steps, fault=None,
+               data=TRAIN_DATA, ranks=TRAIN_RANKS, params=None,
+               overrides=None):
+    """One in-proc EventDrivenTrainer.run of full-width ``arch`` (its
+    config's remat, "full") on the card, ``ranks`` ranks on ``data`` (a
+    DataCfg's fields), from ``params`` (host numpy, the model's tree) or
+    the trainer's own seeded init; ``fault`` plants one of TRAIN_FAULTS
+    (or, through ``_train_fault``, an SSD fault) for this run only;
+    ``overrides`` replace config fields (a depth cut).  A ``dtype`` of
+    "float64" (plain path only) runs under ``_float_as_double``.  Returns
     (trainer, result, host-clock arrival time of each metric)."""
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.data import DataCfg
     from repro_torch.models import build_model
     from repro_torch.optim import OptCfg
     from repro_torch.runtime_dist import trainer as rt
-    cfg = ARCHS[GEMMA].cfg.replace(dtype=dtype, attn_impl=attn_impl)
+    cfg = _cfg(arch).replace(dtype=dtype, attn_impl=attn_impl,
+                             **(overrides or {}))
     # a full-width step takes seconds: the straggler bound must not cut a
     # rank out of a synchronous step
     tcfg = rt.TrainerCfg(steps=steps, n_ranks=ranks, collect_timeout=600.0)
     tr = rt.EventDrivenTrainer(build_model(cfg), DataCfg(**data),
                                OptCfg(**opt), tcfg,
-                               device=torch.device("cuda"))
+                               device=torch.device("cuda"), params=params)
     arrivals = []
     tr.on_metric = lambda m: arrivals.append(
         (time.monotonic(), m["rank"], m["step"]))
@@ -2993,12 +3124,11 @@ def _train_run(dtype, attn_impl, opt, steps, fault=None, data=TRAIN_DATA,
         def own_only(self, rank, grads):
             self.got = {rank: grads}
         rt.QuorumCollector.ensure_own = own_only
-    planted = (chunked_fault() if fault == TRAIN_FAULTS["chunked"]
-               else plain_scale_fault() if fault == TRAIN_FAULTS["plain"]
-               else contextlib.nullcontext())
+    wide = (_float_as_double() if dtype == "float64"
+            else contextlib.nullcontext())
     try:
         t0 = time.monotonic()
-        with planted:
+        with _train_fault(fault), wide:
             res = tr.run(timeout=900)
         torch.cuda.synchronize()
     finally:
@@ -3006,6 +3136,21 @@ def _train_run(dtype, attn_impl, opt, steps, fault=None, data=TRAIN_DATA,
     res["wall_s"] = time.monotonic() - t0
     res["metric_arrivals_s"] = [(t - t0, r, s) for t, r, s in arrivals]
     return tr, res
+
+
+def _train_params(arch, weights, n_layers=None):
+    """Full-width ``arch``'s float32 init on the card (seed 0), at
+    ``n_layers`` if given, rescaled in place by each weight set of
+    ``weights`` (``_weight_set``) in turn, as host numpy: a trainer's
+    ``params``."""
+    from repro_torch import bridge
+    model = _full_model(arch, "float32", "ref", n_layers=n_layers)
+    for name in weights:
+        _weight_set(name, model)
+    tree = bridge.params_to_numpy(model)
+    del model
+    _free()
+    return tree
 
 
 def _losses(res):
@@ -3055,9 +3200,9 @@ def _step_split(tr, data_step):
     from repro_torch.runtime_dist.trainer import QuorumCollector, _host32
     from repro_torch.train import value_and_grad
     from repro_torch.tree import tree_leaves, tree_map
-    st = tr.states[0]
+    st, ranks = tr.states[0], tr.cfg.n_ranks
     batch = {k: torch.from_numpy(v).to("cuda", torch.long)
-             for k, v in tr.data.batch(data_step, 0, TRAIN_RANKS).items()}
+             for k, v in tr.data.batch(data_step, 0, ranks).items()}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -3075,9 +3220,8 @@ def _step_split(tr, data_step):
     host, split["grads_to_host_ms"] = timed(
         lambda: tree_map(_host32, grads))
     del grads
-    coll = QuorumCollector(step=0, epoch=0, need=TRAIN_RANKS,
-                           stale_discount=0.5)
-    for r in range(TRAIN_RANKS):    # rank 0's grads stand in for each rank's
+    coll = QuorumCollector(step=0, epoch=0, need=ranks, stale_discount=0.5)
+    for r in range(ranks):          # rank 0's grads stand in for each rank's
         coll.offer({"rank": r, "step": 0, "epoch": 0, "grads": host})
     (gavg, _, _), split["quorum_reduce_ms"] = timed(coll.reduce)
     del host, coll
@@ -3107,6 +3251,53 @@ def _step_split(tr, data_step):
     return split
 
 
+def _parity_run(arch, impl, fault, dtype, data, params):
+    """One PARITY_STEPS-step sgdm trainer run of ``arch`` at
+    TRAIN_PARITY_OPT, cut in depth by PARITY_CUTS: (its result with rank
+    0's tree only, whether the ranks' trees ended equal)."""
+    tr, res = _train_run(arch, dtype, impl, TRAIN_PARITY_OPT, PARITY_STEPS,
+                         fault, data=data, params=params,
+                         overrides=PARITY_CUTS.get(arch))
+    del tr
+    equal = _replicas_equal(res)
+    del res["final_params"][1:]           # rank 0's tree is compared
+    _free()
+    return res, equal
+
+
+def _parity_floor(arch, data, params):
+    """The plain path's float64 floor: its float32 run held to its float64
+    run by the float32 gate (``_parity``)."""
+    r32, _ = _parity_run(arch, "ref", None, "float32", data, params)
+    r64, _ = _parity_run(arch, "ref", None, "float64", data, params)
+    floor = _parity(r32, r64)
+    del r32, r64
+    _free()
+    return floor
+
+
+def _parity_runs(arch, runs, data=TRAIN_DATA, params=None):
+    """The kernel path's float32 run ("kernel"), then ``runs``: (name,
+    attn_impl, fault) in order, each float32 and held to the kernel run by
+    the float32 gate (``_parity``, its "gate"), but the replica fault's,
+    which the replica gate judges.  Returns {name: {"replicas_equal",
+    "wall_s", "gate"}}, the kernel run's losses beside its entry."""
+    kres, equal = _parity_run(arch, "kernel", None, "float32", data, params)
+    report = {"kernel": {
+        "replicas_equal": equal, "wall_s": kres["wall_s"],
+        "losses": {f"{r}/{s}": v for (r, s), v in _losses(kres).items()}}}
+    for name, impl, fault in runs:
+        res, equal = _parity_run(arch, impl, fault, "float32", data, params)
+        report[name] = {"replicas_equal": equal, "wall_s": res["wall_s"]}
+        if fault != TRAIN_FAULTS["replicas"]:
+            report[name]["gate"] = _parity(kres, res)
+        del res
+        _free()
+    del kres
+    _free()
+    return report
+
+
 def phase_train(out):
     """gemma3-1b trained by the event-driven trainer at full width (the
     training main path), then the float32 parity of its kernel path
@@ -3126,7 +3317,7 @@ def phase_train(out):
     torch.cuda.synchronize()
     for ops in all_ops.values():
         ops.reset_counts()                 # the main path's counts only
-    tr, res = _train_run("bfloat16", "kernel", {"name": "adamw"},
+    tr, res = _train_run(GEMMA, "bfloat16", "kernel", {"name": "adamw"},
                          TRAIN_STEPS)
     launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
     plain = {k: ops.plain_calls for k, ops in all_ops.items()}
@@ -3181,32 +3372,11 @@ def phase_train(out):
 
     # float32: the kernel path against the plain path, planted faults
     fa_before = _fa_variants()
-    runs = {}
-    for name, impl, fault in (("kernel", "kernel", None),
-                              ("plain", "ref", None),
-                              (TRAIN_FAULTS["plain"], "ref",
-                               TRAIN_FAULTS["plain"]),
-                              (TRAIN_FAULTS["replicas"], "kernel",
-                               TRAIN_FAULTS["replicas"])):
-        tr, res = _train_run("float32", impl, TRAIN_PARITY_OPT,
-                             PARITY_STEPS, fault)
-        del tr
-        runs[name] = {"res": res, "replicas_equal": _replicas_equal(res),
-                      "wall_s": res["wall_s"]}
-        del res["final_params"][1:]       # rank 0's tree is compared
-        if name == "kernel":
-            continue
-        if name != TRAIN_FAULTS["replicas"]:
-            runs[name]["gate"] = _parity(runs["kernel"]["res"], res)
-        del res["final_params"]           # free the card for the next run
-        _free()
+    report = _parity_runs(GEMMA, (
+        ("plain", "ref", None),
+        (TRAIN_FAULTS["plain"], "ref", TRAIN_FAULTS["plain"]),
+        (TRAIN_FAULTS["replicas"], "kernel", TRAIN_FAULTS["replicas"])))
     _check_float32_simt(_fa_variants_since(fa_before), "train float32")
-    report = {n: {k: v for k, v in r.items() if k != "res"}
-              for n, r in runs.items()}
-    report["kernel"]["losses"] = {f"{r}/{s}": v for (r, s), v in
-                                  _losses(runs["kernel"]["res"]).items()}
-    del runs
-    _free()
     log("train_parity " + json.dumps({
         "arch": GEMMA, "dtype": "float32", "optimizer": TRAIN_PARITY_OPT,
         "steps": PARITY_STEPS, "loss_rtol": TRAIN_LOSS_RTOL,
@@ -3385,7 +3555,7 @@ def phase_train_long(out):
     torch.cuda.synchronize()
     for ops in all_ops.values():
         ops.reset_counts()                 # the main path's counts only
-    tr, res = _train_run("bfloat16", "kernel", {"name": "adamw"},
+    tr, res = _train_run(GEMMA, "bfloat16", "kernel", {"name": "adamw"},
                          LONG_TRAIN_STEPS, data=LONG_TRAIN_DATA,
                          ranks=LONG_TRAIN_RANKS)
     launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
@@ -3461,7 +3631,7 @@ def phase_train_long(out):
                                TRAIN_FAULTS["chunked"])):
         recomputed = dict(fa.backward_by_path)
         with _chunked_calls() as calls:
-            tr, res = _train_run("float32", impl, TRAIN_PARITY_OPT,
+            tr, res = _train_run(GEMMA, "float32", impl, TRAIN_PARITY_OPT,
                                  LONG_TRAIN_STEPS, fault,
                                  data=LONG_TRAIN_DATA,
                                  ranks=LONG_TRAIN_RANKS)
@@ -3946,6 +4116,162 @@ def phase_whisper_train(out):
     out[f"train_{WHISPER}"] = {"bf16": row, "parity": report}
 
 
+# ------------------------------------------------ training the SSD family
+# phase 43: full-size mamba2-370m trained by EventDrivenTrainer.run,
+# in-proc, 2 ranks on the one card, each rank 2 sequences of 4,096 tokens
+# a step (the reference's train_4k, 32 chunks of 128): the SSD kernel in
+# every forward and again in every remat recompute, the plain scan
+# recomputed in every backward (the reference's custom_vjp)
+SSD_TRAIN_DATA = dict(vocab=50280, seq=4096, global_batch=4, seed=7)
+SSD_TRAIN_STEPS = 4
+# its float32 parity (at PARITY_CUTS' depth): the kernel path (every SSD
+# launch SIMT) against the plain path at phase 19's gate, 4 chunks a
+# sequence, from Mamba-2's init of a_log and dt_bias (at the reference's
+# init the state barely crosses a chunk, so no gate would see the term
+# between chunks).  First the plain path's own floor, its float32 run held
+# to its float64 run by the same gate: if that is above the gate, the next
+# weight set (stacked leaves at one layer's fan-in too) is tried instead.
+# Planted: the term between chunks dropped in the plain scan must fail the
+# gate, each rank applying its own grads the replica gate; the
+# chunk-by-chunk control must pass both
+SSD_PARITY_DATA = dict(SSD_TRAIN_DATA, seq=512)
+SSD_PARITY_WEIGHTS = (("mamba2_init",), ("layer_fan_in", "mamba2_init"))
+SSD_TRAIN_FAULT = "no_inter_chunk"
+
+
+def phase_train_ssd(out):
+    """mamba2-370m trained by the event-driven trainer at full size and
+    4,096 tokens a sequence (the SSD family's training main path), then
+    the float32 parity of its kernel path against its plain path, with
+    planted faults and the plain path's float64 floor."""
+    import math
+    import resource
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd
+    cfg = _cfg(MAMBA)
+    rank_steps = TRAIN_RANKS * SSD_TRAIN_STEPS
+    # each rank-step runs every SSD layer's backward once, and its forward
+    # once more under remat (the config's "full"): the recompute
+    recomputes_want = path_kernels(cfg)["ssd_fwd"] * rank_steps
+    expected = recomputes_want * (1 if cfg.remat == "none" else 2)
+    all_ops = _all_ops()
+    torch.cuda.synchronize()
+    for ops in all_ops.values():
+        ops.reset_counts()                 # the main path's counts only
+    tr, res = _train_run(MAMBA, "bfloat16", "kernel", {"name": "adamw"},
+                         SSD_TRAIN_STEPS, data=SSD_TRAIN_DATA)
+    launches = {k: ops.kernel_launches for k, ops in all_ops.items()}
+    plain = {k: ops.plain_calls for k, ops in all_ops.items()}
+    by_variant = dict(ssd.launches_by_variant)
+    recomputes = ssd.backward_recomputes
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = _losses(res)
+    ln_vocab = math.log(cfg.vocab)
+    row = {"arch": MAMBA, "card": out.get("card"), "dtype": cfg.dtype,
+           "remat": cfg.remat, "ranks": TRAIN_RANKS,
+           "steps": SSD_TRAIN_STEPS, "optimizer": "adamw",
+           "data": SSD_TRAIN_DATA, "wall_s": res["wall_s"],
+           "metric_arrivals_s": res["metric_arrivals_s"],
+           "losses": {f"{r}/{s}": v for (r, s), v in losses.items()},
+           "ln_vocab": ln_vocab,
+           "kernel_launches": launches, "plain_calls": plain,
+           "ssd_launches_by_variant": by_variant,
+           "ssd_backward_recomputes": recomputes,
+           "timeouts": res["timeouts"],
+           "max_memory_allocated_gib": peak_gib}
+    checks = {
+        f"{len(losses)} losses == ranks x steps": len(losses) == rank_steps,
+        "losses finite and within 2 of ln(vocab)": all(
+            math.isfinite(v) and abs(v - ln_vocab) < 2
+            for v in losses.values()),
+        "replicas equal": _replicas_equal(res),
+        f"ssd_fwd launches == {expected}": launches["ssd_fwd"] == expected,
+        "every ssd_fwd launch mma_bf16": by_variant["mma_bf16"] == expected,
+        "no other kernel launched": not any(
+            n for k, n in launches.items() if k != "ssd_fwd"),
+        "plain_calls == 0": not any(plain.values()),
+        f"ssd backward recomputes == {recomputes_want}":
+            recomputes == recomputes_want,
+        "no straggler timeout": res["timeouts"] == 0,
+    }
+    del res
+    _free()
+    row["step_split"] = _step_split(tr, SSD_TRAIN_STEPS)
+    del tr
+    _free()
+    row["peak_rss_gib"] = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                           / 2 ** 20)
+    log("train " + json.dumps(row))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+    out[f"train_{MAMBA}"] = row
+    out.setdefault("main_path_launches", {})[SSD_TRAIN_PATH] = {
+        "ssd_fwd": launches["ssd_fwd"]}
+    out.setdefault("ssd_main_path_by_variant", {})[
+        SSD_TRAIN_PATH] = by_variant
+
+    # float32: the plain path's float64 floor at each weight set in turn,
+    # until one is under the gate; there the kernel path against the
+    # plain path, planted faults
+    cut = PARITY_CUTS[MAMBA]
+    floors = {}
+    for weights in SSD_PARITY_WEIGHTS:
+        params = _train_params(MAMBA, weights, cut["n_layers"])
+        floor = _parity_floor(MAMBA, SSD_PARITY_DATA, params)
+        floors["+".join(weights)] = floor
+        log("train_parity_floor " + json.dumps({
+            "arch": MAMBA, "weights": weights, **cut,
+            "data": SSD_PARITY_DATA, "floor": floor}))
+        if not floor["rejected"]:
+            break
+        del params
+        _free()
+    else:
+        out[f"train_parity_{MAMBA}"] = {"floors": floors}
+        raise AssertionError("train parity: the plain path's float64 floor "
+                             "is above the gate at every weight set")
+    # the kernel run and the own-grads run: a forward and a remat
+    # recompute a layer, a rank-step
+    want_simt = 2 * (2 * path_kernels(cfg.replace(**cut))["ssd_fwd"]
+                     * TRAIN_RANKS * PARITY_STEPS)
+    before = dict(ssd.launches_by_variant)
+    report = _parity_runs(MAMBA, (
+        ("plain", "ref", None),
+        (SSD_CONTROL, "ref", SSD_CONTROL),
+        (SSD_TRAIN_FAULT, "ref", SSD_TRAIN_FAULT),
+        (TRAIN_FAULTS["replicas"], "kernel", TRAIN_FAULTS["replicas"])),
+        data=SSD_PARITY_DATA, params=params)
+    del params
+    report["ssd_launches_by_variant"] = {
+        v: ssd.launches_by_variant[v] - before[v] for v in before}
+    report.update(weights=weights, floors=floors)
+    log("train_parity " + json.dumps({
+        "arch": MAMBA, "dtype": "float32", **cut, "data": SSD_PARITY_DATA,
+        "optimizer": TRAIN_PARITY_OPT, "steps": PARITY_STEPS,
+        "loss_rtol": TRAIN_LOSS_RTOL, "param_rtol": TRAIN_PARAM_RTOL,
+        "param_atol": TRAIN_PARAM_ATOL, **report}))
+    out[f"train_parity_{MAMBA}"] = report
+    checks = {
+        "float32 kernel path == plain path":
+            not report["plain"]["gate"]["rejected"],
+        "the chunkwise control passes the gate":
+            not report[SSD_CONTROL]["gate"]["rejected"],
+        f"{SSD_TRAIN_FAULT} fails the gate":
+            report[SSD_TRAIN_FAULT]["gate"]["rejected"],
+        "kernel run replicas equal": report["kernel"]["replicas_equal"],
+        "plain run replicas equal": report["plain"]["replicas_equal"],
+        "the own-grads fault fails the replica gate":
+            not report[TRAIN_FAULTS["replicas"]]["replicas_equal"],
+        f"{want_simt} float32 SSD launches, all simt":
+            report["ssd_launches_by_variant"] == {"mma_bf16": 0,
+                                                  "simt": want_simt},
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train parity checks failed: {failed}")
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -4002,6 +4328,8 @@ PHASES = {
          phase_train_long),
     41: ("whisper-tiny model and serve (main path)", phase_whisper),
     42: ("whisper-tiny train", phase_whisper_train),
+    43: ("mamba2-370m train at 4,096 tokens (event-driven trainer)",
+         phase_train_ssd),
 }
 
 
@@ -4112,11 +4440,27 @@ def kernels_line(out):
                                        if timed else None)
         if name == "ssd_fwd":
             entry["library"] = "no single PyTorch call computes the SSD scan"
-            # the variant the timed shape launched, the main path's
-            # launches by variant, and the SIMT kernel on the same inputs
+            # the variant the timed shape launched, the main paths'
+            # launches by variant, summed and by path, and the SIMT kernel
+            # on the same inputs
             entry["variant"] = timed["variant"] if timed else None
-            entry["launches_by_variant"] = out.get(
-                "ssd_main_path_by_variant")
+            by_variant = out.get("ssd_main_path_by_variant", {})
+            entry["launches_by_variant"] = {
+                v: sum(n[v] for n in by_variant.values())
+                for v in SSD_ENTRY} if by_variant else None
+            entry["launches_by_variant_by_path"] = by_variant
+            # the training path's bf16 shape at its 4,096 tokens
+            g = next((r for r in rows if r["path"] == SSD_TRAIN_PATH
+                      and r["T"] == SSD_TRAIN_T[-1]
+                      and r["dtype"] == "bfloat16"), None)
+            entry["train"] = g and {
+                k: g.get(k) for k in (
+                    "B", "T", "H", "G", "N", "P", "chunk", "dtype",
+                    "variant", "max_abs_err", "ms", "device_ms", "simt_ms",
+                    "simt_device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "grad_check")}
+            if entry["train"]:
+                entry["train"]["launches"] = paths.get(SSD_TRAIN_PATH)
             entry["simt_ms"] = timed.get("simt_ms") if timed else None
             entry["simt_device_ms"] = (timed.get("simt_device_ms")
                                        if timed else None)

@@ -22,8 +22,9 @@ are not repeated to heads: the kernel reads head h's group through b's and
 c's strides.  The output is float32, as the reference's wrapper returns it.
 
 The backward pass recomputes the plain version under autograd, as the
-reference's ``_bwd`` does: the forward is exact, so its gradients are exact
-too.  A backward kernel is later work.
+reference's ``_bwd`` does, and counts the recompute in
+:data:`backward_recomputes`: the forward is exact, so its gradients are
+exact too.  A backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ plain_calls = 0
 VARIANTS = ("mma_bf16", "simt")
 #: kernel launches in this process by variant
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+#: backward passes, each a recompute of the plain version under autograd
+backward_recomputes = 0
 _count_lock = threading.Lock()
 
 CHUNKS = (32, 64, 96, 128)
@@ -56,10 +59,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
-    global kernel_launches, plain_calls
+    global kernel_launches, plain_calls, backward_recomputes
     with _count_lock:
         kernel_launches = 0
         plain_calls = 0
+        backward_recomputes = 0
         for v in VARIANTS:
             launches_by_variant[v] = 0
 
@@ -235,6 +239,9 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gfin):
+        global backward_recomputes
+        with _count_lock:
+            backward_recomputes += 1
         x, dt, a_log, b, c, init_state = ctx.saved_tensors
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(t.is_floating_point())

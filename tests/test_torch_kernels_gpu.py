@@ -405,6 +405,46 @@ def test_ssd_float32_launches_simt(cuda, T, H, G, N, P, chunk, init):
     _close_scaled(fin, fr, SSD_TOL)
 
 
+# the SSD gradient at the training path's shapes (mamba2-370m, B=2
+# sequences a rank, 32 heads of 64, state 128, chunk 128, no initial
+# state): the grads of sum(w * y), w seeded, through ``ops.ssd`` (the
+# kernel forward, the plain scan recomputed under autograd in the
+# backward) against the plain scan's own autograd.  Both get the same
+# upstream w and run the same plain scan on the same inputs, so each grad
+# equals its plain grad bit for bit: this holds the backward's wiring, not
+# the kernel, whose output the grads never see
+
+
+def _ssd_grads(scan, x, dt, a_log, b, c, w):
+    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+    return torch.autograd.grad((scan(*ins) * w).sum(), ins)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [512, 4096])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_grad_through_kernel_matches_plain(cuda, T, dtype):
+    x, dt, a_log, b, c, _ = _ssd_inputs(2, T, 32, 1, 128, 64, dtype, False,
+                                        cuda)
+    w = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        x.shape, dtype=np.float32)).to(cuda)
+    variant = "mma_bf16" if dtype == "bfloat16" else "simt"
+    before = (dict(tssd.launches_by_variant), tssd.backward_recomputes)
+    got = _ssd_grads(lambda *a: tssd.ssd(*a, chunk=128), x, dt, a_log, b,
+                     c, w)
+    torch.cuda.synchronize()
+    assert tssd.launches_by_variant == dict(
+        before[0], **{variant: before[0][variant] + 1})
+    assert tssd.backward_recomputes == before[1] + 1
+    want = _ssd_grads(
+        lambda *a: tssd_ref.ssd_padded_reference(*a, chunk=128)[0],
+        x, dt, a_log, b, c, w)
+    for name, g, e in zip(("x", "dt", "a_log", "b", "c"), got, want):
+        assert g.dtype == e.dtype, name
+        assert torch.equal(g, e), (name, float((g.float() - e.float())
+                                               .abs().max()))
+
+
 @pytest.mark.gpu
 def test_ssd_named_variant(cuda):
     """``kernel="simt"`` runs the SIMT kernel on bf16 inputs the tensor
