@@ -26,7 +26,8 @@ forward and in every remat recompute), at 512 tokens a sequence and at
 whisper-tiny (the encoder-decoder model: flash attention not causal in
 every encoder layer, causal in every decoder self-attention layer), and
 training mamba2-370m at 4,096 tokens a sequence (the SSD scan in every
-forward and every remat recompute):
+forward and every remat recompute); besides, the paper's MONC in-situ
+analytics, event-driven, every raw field's arithmetic on the card:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -244,7 +245,26 @@ forward and every remat recompute):
     one layer's fan-in are tried instead), then the kernel path (every SSD
     launch SIMT) against the plain path at phase 19's gate, which must
     reject the term between chunks dropped and the grads left unaveraged,
-    and pass the chunk-by-chunk control.
+    and pass the chunk-by-chunk control;
+44. the paper's MONC in-situ analytics (§VI) at its per-item sizes
+    (``INSITU["paper"]`` of ``configs/edat_paper.py``: 1,024 items of
+    4,096 float64 values a producer, 2 fields), every item's arithmetic
+    on the card: for n_analytics 1, 2, 4 and 8 (the paper's 1,024-16,384
+    analytics cores cut to what one host holds as ranks), the EDAT
+    program and then the bespoke baseline in-proc, each with 1,024
+    results, every ``_analyse`` call on cuda, and its totals held to a
+    numpy recompute on the host from the same seeds (sums within 1e-12 x
+    sum|x|, sums of squares within 1e-12 x sum x^2, min and max
+    bit-equal; the bespoke baseline sums in arrival order, so its min and
+    max within 1e-12 x the ranks' sum of |min| (|max|)), which must
+    reject a rank's partial left out and an item's last value dropped
+    beside its passing control; bandwidth, mean latency and, for EDAT,
+    ``insights.analyze``'s findings; one socket session (4 ranks on 2
+    spawned processes) with its wall split, the children's count of
+    ``_analyse`` calls (all on cuda) and totals (the same gate) from the
+    summary, the parent's count unmoved; and one profiled window of 64
+    items on one analytics rank: device time and kernels an item against
+    the host wall.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -4272,6 +4292,286 @@ def phase_train_ssd(out):
         raise AssertionError(f"train parity checks failed: {failed}")
 
 
+# ----------------------------------------------------- MONC in-situ analytics
+# phase 44: the paper's per-item stream (INSITU["paper"] of the port's
+# configs/edat_paper.py: 1,024 items of 4,096 float64 values a producer),
+# 2 fields, 1:1 computational to analytics ranks; the paper's 1,024-16,384
+# analytics cores cut to the counts of the "big" preset that fit one host
+INSITU_N = (1, 2, 4, 8)
+INSITU_FIELDS = 2
+INSITU_WORKERS = 4
+# |port - host| <= RTOL x sum|x| for sums, RTOL x sum x^2 for sums of
+# squares (float64 sums in another order differ by rounding); min and max
+# bit-equal
+INSITU_RTOL = 1e-12
+INSITU_FAULTS = ("partial_dropped", "last_value_dropped")
+INSITU_PROFILE_ITEMS = 64
+
+
+def _host_partials(x):
+    """The reference's per-item arithmetic on rows of ``x`` (numpy)."""
+    import numpy as np
+    return np.stack([x.sum(-1), (x * x).sum(-1), x.min(-1), x.max(-1)], -1)
+
+
+def insitu_host_totals(cfg, bespoke=False):
+    """Every producer's item partials, recomputed on the host with numpy
+    from the producers' seeds (the EDAT program's producer ranks n..2n-1
+    seed ``default_rng(rank)``, the bespoke baseline's ``rank + 1000``),
+    with sum |x| of each item.  Returns ``{name: (partials, abs_sums)}``,
+    arrays of (analytics rank, item, ...), for the control and each
+    planted fault: ``partial_dropped`` leaves the last analytics rank's
+    partial out of the first (field, timestep)'s total,
+    ``last_value_dropped`` drops the last value of the first producer's
+    first item."""
+    import numpy as np
+    n = cfg.n_analytics
+    seeds = [r + 1000 if bespoke else n + r for r in range(n)]
+    parts, absx = [], []
+    for seed in seeds:
+        x = np.random.default_rng(seed).standard_normal(
+            (cfg.items_per_producer, cfg.field_elems))
+        parts.append(_host_partials(x))
+        absx.append(np.abs(x).sum(-1))
+        if seed == seeds[0]:
+            short = x[0, :-1]
+    parts, absx = np.stack(parts), np.stack(absx)
+    dropped, dropped_abs = parts.copy(), absx.copy()
+    dropped[-1, 0], dropped_abs[-1, 0] = 0.0, 0.0
+    cut, cut_abs = parts.copy(), absx.copy()
+    cut[0, 0], cut_abs[0, 0] = _host_partials(short), np.abs(short).sum()
+    return {"control": (parts, absx),
+            "partial_dropped": (dropped, dropped_abs),
+            "last_value_dropped": (cut, cut_abs)}
+
+
+def insitu_gate(got, want, any_order=False, rtol=INSITU_RTOL):
+    """The port's totals (a list of four-value arrays, no key) against the
+    host's ``(partials, abs_sums)`` folded over ranks in rank order, as
+    multisets: both sorted by the sum term, then compared one to one.
+    ``ok`` holds when the counts are equal, every sum is within ``rtol``
+    x sum|x|, every sum of squares within ``rtol`` x sum x^2, and every
+    min and max term is bit-equal to the ranks' min (max) summed in rank
+    order, or, with ``any_order`` (the bespoke baseline sums the ranks'
+    partials in their order of arrival, and three or more float terms
+    round by their order), within ``rtol`` x the sum of the ranks' |min|
+    (|max|).  The ratios are the largest |port - host| over its limit."""
+    import numpy as np
+    parts, absx = want
+    totals, a, q = parts.sum(0), absx.sum(0), parts[..., 1].sum(0)
+    if len(got) != len(totals):
+        return {"ok": False, "results": len(got), "expected": len(totals)}
+    g = np.array(sorted(got, key=lambda t: t[0]))
+    order = np.argsort(totals[:, 0], kind="stable")
+    w, a, q = totals[order], a[order], q[order]
+    m = np.abs(parts[..., 2:]).sum(0)[order]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sum_ratio = float(np.nanmax(np.abs(g[:, 0] - w[:, 0]) / (rtol * a)))
+        sq_ratio = float(np.nanmax(np.abs(g[:, 1] - w[:, 1]) / (rtol * q)))
+        mm_ratio = float(np.nanmax(np.abs(g[:, 2:] - w[:, 2:]) / (rtol * m)))
+    bits = bool((g[:, 2:] == w[:, 2:]).all())
+    minmax = mm_ratio <= 1 if any_order else bits
+    return {"ok": sum_ratio <= 1 and sq_ratio <= 1 and minmax,
+            "results": len(got), "sum_ratio": sum_ratio,
+            "sumsq_ratio": sq_ratio, "minmax_ratio": mm_ratio,
+            "minmax_bit_equal": bits}
+
+
+def _monotonic_stamp(ctx, events):
+    """A task's host clock, for ``Session.call`` (the run's start on rank
+    0's process; ``time.monotonic`` is one clock across processes)."""
+    return time.monotonic()
+
+
+def _insitu_cfg(n, items=None):
+    from repro_torch.analytics import InsituCfg
+    from repro_torch.configs.edat_paper import INSITU
+    paper = INSITU["paper"]
+    return InsituCfg(n_analytics=n,
+                     items_per_producer=items or paper.items_per_producer,
+                     field_elems=paper.field_elems, n_fields=INSITU_FIELDS)
+
+
+def _insitu_socket():
+    """One socket session of the EDAT program (n_analytics 2, 4 ranks on
+    2 spawned processes, each item's arithmetic on the card in the
+    analytics ranks' process): its wall split, wire counters and result
+    count.  The children's summary must show every ``_analyse`` call on
+    cuda and totals that pass the host gate (which rejects both planted
+    faults), and the parent's own ``_analyse`` count must not move."""
+    import dataclasses
+    from repro_torch import edat
+    from repro_torch.analytics import insitu, insitu_program
+    from repro_torch.insights import analyze
+    cfg = _insitu_cfg(2)
+    parent0 = dict(insitu.calls_by_device)
+    t0 = time.monotonic()
+    with edat.Session(2 * cfg.n_analytics, transport="socket", procs=2,
+                      timeout=300, workers_per_rank=INSITU_WORKERS) as s:
+        stamp = s.call(0, _monotonic_stamp)
+        s.run(edat.deferred(insitu_program, dataclasses.asdict(cfg),
+                            INSITU_WORKERS, "cuda"))
+        summary, stats = s.gather(), s.stats
+        started = stamp.result(timeout=60)
+    session_s = time.monotonic() - t0
+    wire = stats.get("transport", {})
+    run_s = float(stats["run_seconds"])
+    raw = cfg.n_analytics * cfg.items_per_producer
+    gates = {k: insitu_gate(summary["totals"], want)
+             for k, want in insitu_host_totals(cfg).items()}
+    res = {"n_analytics": cfg.n_analytics, "ranks": 2 * cfg.n_analytics,
+           "procs": 2, "results": summary["results"],
+           "mean_latency_s": summary["mean_latency_s"],
+           "bandwidth_items_s": raw / run_s, "session_s": session_s,
+           "spawn_build_s": started - t0, "run_seconds": run_s,
+           "rest_s": session_s - (started - t0) - run_s,
+           "wire": {k: wire.get(k) for k in (
+               "wire_events_sent", "writes", "wire_bytes",
+               "loopback_events", "dropped")},
+           "calls_by_device": summary["calls_by_device"], "gates": gates,
+           "insights": [str(f) for f in analyze(stats)]}
+    checks = {
+        f"results == {cfg.items_per_producer}":
+            summary["results"] == cfg.items_per_producer,
+        "events crossed the wire": (wire.get("wire_events_sent") or 0) > 0,
+        f"the children's calls_by_device == cuda: {raw}":
+            summary["calls_by_device"] == {"cuda": raw},
+        "the control passes the totals gate": gates["control"]["ok"],
+        **{f"{f} fails the totals gate": not gates[f]["ok"]
+           for f in INSITU_FAULTS},
+        "the parent's calls_by_device unmoved":
+            dict(insitu.calls_by_device) == parent0,
+    }
+    return res, checks
+
+
+def _insitu_profile():
+    """One window of INSITU_PROFILE_ITEMS items on one analytics rank:
+    the device time of the arithmetic an item (kernels, and the copies in
+    and out) under ``torch.profiler`` against the host wall an item of
+    the same run unprofiled, and the host time of one item's arithmetic
+    called alone in a loop (one thread, no runtime around it).  The
+    profiler keeps only some of the workers' device events, so each
+    event name's time an item is its mean over the events kept times its
+    launches an item (every item launches the same sequence, so that
+    count is the kept count over the items, rounded)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analytics import EdatAnalytics, insitu
+    cfg = _insitu_cfg(1, INSITU_PROFILE_ITEMS)
+    items = cfg.items_per_producer
+    EdatAnalytics(cfg, INSITU_WORKERS, device="cuda").run()  # warm
+    wall = EdatAnalytics(cfg, INSITU_WORKERS, device="cuda").run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        EdatAnalytics(cfg, INSITU_WORKERS, device="cuda").run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name, [0.0, 0])
+            acc[0] += (e.time_range.end - e.time_range.start) / 1e3
+            acc[1] += 1
+    # kind: [ms an item, launches an item, events kept]
+    kinds = {"kernel": [0.0, 0, 0], "copy": [0.0, 0, 0]}
+    for name, (ms, kept) in by_name.items():
+        per_item = round(kept / items)
+        acc = kinds["copy" if "memcpy" in name.lower() else "kernel"]
+        acc[0] += ms / kept * per_item
+        acc[1] += per_item
+        acc[2] += kept
+    fields = np.random.default_rng(cfg.n_analytics).standard_normal(
+        (items, cfg.field_elems))
+    dev = torch.device("cuda")
+    insitu._partial(fields[0], dev)
+    t0 = time.monotonic()
+    for x in fields:
+        insitu._partial(x, dev)
+    alone_ms = (time.monotonic() - t0) * 1e3 / items
+    wall_ms = wall["seconds"] * 1e3 / items
+    kern, copy = kinds["kernel"], kinds["copy"]
+    device_ms = kern[0] + copy[0]
+    return {"items": items, "kernel_ms_per_item": kern[0],
+            "kernels_per_item": kern[1], "copy_ms_per_item": copy[0],
+            "copies_per_item": copy[1],
+            "events_kept_share": (kern[2] + copy[2])
+            / max(items * (kern[1] + copy[1]), 1),
+            "device_ms_per_item": device_ms,
+            "host_wall_ms_per_item": wall_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "arithmetic_alone_host_ms_per_item": alone_ms,
+            "events_kept_by_name": sorted(
+                [v[1], k[:80]] for k, v in by_name.items()),
+            "top_device_ms_count": _kernel_time(prof)[2]}
+
+
+def phase_insitu(out):
+    """The paper's MONC in-situ analytics (§VI) at its per-item sizes: for
+    each n_analytics of INSITU_N, the EDAT program and then the bespoke
+    baseline in-proc (2n ranks as threads), every item's arithmetic on the
+    card; the result count, the ``_analyse`` calls by device, and the
+    totals against the host's numpy recompute (which must reject two
+    planted faults beside its control); then one socket session and one
+    profiled window."""
+    from repro_torch.analytics import BespokeAnalytics, EdatAnalytics, insitu
+    from repro_torch.insights import analyze
+    runs, failed = [], []
+    for n in INSITU_N:
+        cfg = _insitu_cfg(n)
+        for name, cls in (("edat", EdatAnalytics),
+                          ("bespoke", BespokeAnalytics)):
+            prog = cls(cfg, INSITU_WORKERS, device="cuda")
+            insitu.reset_counts()
+            res = prog.run()
+            calls = dict(insitu.calls_by_device)
+            got = [total for total, _ in prog.results]
+            gates = {k: insitu_gate(got, want, any_order=name == "bespoke")
+                     for k, want in
+                     insitu_host_totals(cfg, name == "bespoke").items()}
+            row = {"program": name, "n_analytics": n, "ranks": 2 * n,
+                   **res, "calls_by_device": calls, "gates": gates}
+            if name == "edat":
+                row["insights"] = [str(f) for f in analyze(prog.stats)]
+            log(f"insitu_run {json.dumps(row)}")
+            runs.append(row)
+            checks = {
+                f"results == {cfg.items_per_producer}":
+                    res["results"] == cfg.items_per_producer,
+                f"calls_by_device == cuda: {n * cfg.items_per_producer}":
+                    calls == {"cuda": n * cfg.items_per_producer},
+                "the control passes the totals gate":
+                    gates["control"]["ok"],
+                **{f"{f} fails the totals gate": not gates[f]["ok"]
+                   for f in INSITU_FAULTS}}
+            if name == "edat":
+                checks[f"summary calls_by_device == cuda: "
+                       f"{n * cfg.items_per_producer}"] = (
+                    prog.summary["calls_by_device"]
+                    == {"cuda": n * cfg.items_per_producer})
+            failed += [f"{name} n={n}: {k}" for k, ok in checks.items()
+                       if not ok]
+    socket_run, checks = _insitu_socket()
+    failed += [f"socket: {k}" for k, ok in checks.items() if not ok]
+    prof = _insitu_profile()
+    line = {"card": out.get("card"), "items_per_producer":
+            _insitu_cfg(1).items_per_producer,
+            "field_elems": _insitu_cfg(1).field_elems,
+            "n_fields": INSITU_FIELDS, "workers_per_rank": INSITU_WORKERS,
+            "rtol": INSITU_RTOL,
+            "runs": [{k: r[k] for k in (
+                "program", "n_analytics", "seconds", "bandwidth_items_s",
+                "mean_latency_s", "results", "calls_by_device")}
+                | {"insights": r.get("insights"),
+                   "control": r["gates"]["control"]} for r in runs],
+            "socket": socket_run, "profile": prof}
+    log(f"insitu {json.dumps(line)}")
+    out["insitu"] = dict(line, runs=runs)
+    if failed:
+        raise AssertionError(f"insitu checks failed: {failed}")
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -4330,6 +4630,7 @@ PHASES = {
     42: ("whisper-tiny train", phase_whisper_train),
     43: ("mamba2-370m train at 4,096 tokens (event-driven trainer)",
          phase_train_ssd),
+    44: ("MONC in-situ analytics (paper §VI)", phase_insitu),
 }
 
 

@@ -11,7 +11,7 @@ every layer:
 * :func:`merge_metrics` — fold per-process metric snapshots (one per
   spawned rank process, or a single in-proc runtime) into the canonical
   ``{"channels", "ranks", "transport"}`` shape that ``Session.stats()``
-  exposes and :func:`repro.insights.analyze` consumes;
+  exposes and :func:`repro_torch.insights.analyze` consumes;
 * :class:`RunStats` — the stats mapping itself.  A plain ``dict`` in
   every respect, but *callable* (``s.stats()`` ≡ ``s.stats``) so the
   accessor idiom and the attribute idiom are both valid.

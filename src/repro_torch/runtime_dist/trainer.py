@@ -87,7 +87,7 @@ from repro_torch.data import DataCfg, SyntheticLM
 from repro_torch.models.common import init_tree
 from repro_torch.optim import OptCfg, make_optimizer
 from repro_torch.tree import tree_map
-from repro_torch.serve.engine import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.train import value_and_grad
 
 #: typed event channels of the trainer program (v2 API); the runtime's

@@ -43,20 +43,11 @@ import numpy as np
 import torch
 
 from ..bridge import params_from_jax_numpy
+from ..core.device import resolve_device
 from ..models import build_model
 from ..train import make_prefill_step, make_serve_step
 
 DEFAULT_MAX_LEN = 128
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port serves on the GPU; pass device='cpu' "
-            "to run on the CPU")
-    return dev
 
 
 def serving_cfg(cfg, max_len: int = DEFAULT_MAX_LEN):

@@ -9,6 +9,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.analytics import (BespokeAnalytics,         # noqa: E402
+                                   EdatAnalytics, InsituCfg,
+                                   distributed_insitu, insitu_program)
 from repro_torch.configs import ARCHS, reduce_cfg            # noqa: E402
 from repro_torch.data import DataCfg                         # noqa: E402
 from repro_torch.models import build_model                   # noqa: E402
@@ -44,7 +47,9 @@ for name in ("repro_torch.models.mamba2", "repro_torch.models.moe",
              "repro_torch.optim.schedules", "repro_torch.checkpoint",
              "repro_torch.checkpoint.store", "repro_torch.runtime_dist",
              "repro_torch.runtime_dist.trainer", "repro_torch.train.step",
-             "repro_torch.tree"):
+             "repro_torch.tree", "repro_torch.analytics",
+             "repro_torch.analytics.insitu", "repro_torch.insights",
+             "repro_torch.configs.edat_paper", "repro_torch.core.device"):
     assert name in names, name
 """
 
@@ -56,8 +61,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     # configs, runtime, net, models, kernels, serve, data, optim,
-    # checkpoint, train, runtime_dist
-    assert n_modules >= 52
+    # checkpoint, train, runtime_dist, analytics, insights
+    assert n_modules >= 57
 
 
 CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
@@ -94,6 +99,11 @@ ENTRY_POINTS = {
         lambda: rtrainer.distributed_train(2, CFG, DATA, OptCfg(), TRAINER,
                                            n_procs=2)),
     "trainer_cli": lambda: rtrainer._cli(["--steps", "1"]),
+    "EdatAnalytics": lambda: EdatAnalytics(InsituCfg()).run(),
+    "BespokeAnalytics": lambda: BespokeAnalytics(InsituCfg()).run(),
+    "insitu_program": lambda: insitu_program({}),
+    "distributed_insitu": lambda: _deprecated(
+        lambda: distributed_insitu(InsituCfg(), n_procs=2)),
 }
 
 

@@ -691,3 +691,31 @@ def test_moe_on_card_matches_cpu_and_repeats_bit_for_bit(cuda, B, S):
     torch.cuda.synchronize()
     assert torch.isfinite(a.float()).all()
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_insitu_analytics_on_card(cuda):
+    """The EDAT in-situ analytics program with every item's arithmetic on
+    the card (n_analytics 2, 64 items of 4,096 float64 values a
+    producer): every ``_analyse`` call on cuda, and the totals pass phase
+    44's gate against the host's numpy recompute, which rejects both
+    planted faults."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke
+    from repro_torch.analytics import EdatAnalytics, InsituCfg, insitu
+    cfg = InsituCfg(n_analytics=2, items_per_producer=64, field_elems=4096,
+                    n_fields=2)
+    insitu.reset_counts()
+    prog = EdatAnalytics(cfg, device=cuda)
+    res = prog.run()
+    assert res["results"] == cfg.items_per_producer
+    assert insitu.calls_by_device == {"cuda": 2 * cfg.items_per_producer}
+    assert prog.summary["calls_by_device"] == insitu.calls_by_device
+    got = [total for total, _ in prog.results]
+    gates = {k: chip_smoke.insitu_gate(got, want)
+             for k, want in chip_smoke.insitu_host_totals(cfg).items()}
+    assert gates["control"]["ok"], gates["control"]
+    for fault in chip_smoke.INSITU_FAULTS:
+        assert not gates[fault]["ok"], (fault, gates[fault])
