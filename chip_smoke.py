@@ -27,7 +27,9 @@ whisper-tiny (the encoder-decoder model: flash attention not causal in
 every encoder layer, causal in every decoder self-attention layer), and
 training mamba2-370m at 4,096 tokens a sequence (the SSD scan in every
 forward and every remat recompute); besides, the paper's MONC in-situ
-analytics, event-driven, every raw field's arithmetic on the card:
+analytics, event-driven, every raw field's arithmetic on the card, and
+the paper's Graph500 BFS at Kronecker scale 25, the generator's draws made
+by a kernel on the card and every level's expansion there:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for float32 products;
@@ -240,17 +242,19 @@ analytics, event-driven, every raw field's arithmetic on the card:
     recomputes a backward (``ops.backward_recomputes``), no other kernel
     and no plain call, finite losses near ln(vocab), bit-equal replicas;
     the step split as in phase 19; then float32 sgdm runs of 3 steps at
-    512 tokens and 12 layers from Mamba-2's init of a_log and dt_bias, the
-    plain path's float64 floor first (above the gate, stacked leaves at
-    one layer's fan-in are tried instead), then the kernel path (every SSD
+    512 tokens and 12 layers from Mamba-2's init of a_log and dt_bias,
+    with stacked leaves at one layer's fan-in (at Mamba-2's init alone the
+    plain path's float64 floor is above the gate), the plain path's float64
+    floor first, then the kernel path (every SSD
     launch SIMT) against the plain path at phase 19's gate, which must
     reject the term between chunks dropped and the grads left unaveraged,
     and pass the chunk-by-chunk control;
 44. the paper's MONC in-situ analytics (§VI) at its per-item sizes
     (``INSITU["paper"]`` of ``configs/edat_paper.py``: 1,024 items of
     4,096 float64 values a producer, 2 fields), every item's arithmetic
-    on the card: for n_analytics 1, 2, 4 and 8 (the paper's 1,024-16,384
-    analytics cores cut to what one host holds as ranks), the EDAT
+    on the card: for n_analytics 1, 2 and 4 (the paper's 1,024-16,384
+    analytics cores cut to what one host holds as ranks, and n = 8 left
+    out to make room for phase 45), the EDAT
     program and then the bespoke baseline in-proc, each with 1,024
     results, every ``_analyse`` call on cuda, and its totals held to a
     numpy recompute on the host from the same seeds (sums within 1e-12 x
@@ -264,7 +268,27 @@ analytics, event-driven, every raw field's arithmetic on the card:
     ``_analyse`` calls (all on cuda) and totals (the same gate) from the
     summary, the parent's count unmoved; and one profiled window of 64
     items on one analytics rank: device time and kernels an item against
-    the host wall.
+    the host wall;
+45. the paper's Graph500 BFS (§V): the Kronecker generator's kernel
+    against its plain version (numpy's draws) over the whole array at
+    scale 18 and against numpy's draws reached by ``advance`` on 1,000
+    sampled edges at scale 25, a run one draw late failing both, timed
+    (CUDA events, and profiler device ms, read in a fresh process where
+    this one's profiler keeps no launch) beside its bound (its bytes, and
+    its SASS instructions at the issue rate); at scale 20 the card's CSR
+    and a 4-rank EDAT BFS against the CPU path on the same edges,
+    ``default_root`` against the first vertex of nonzero degree, then one
+    socket session (4 ranks on 2 processes, every expansion on cuda); then
+    the paper's run at scale 25, edgefactor 16, seed 20, rooted by
+    ``default_root``'s rule on the generated edges: generated and built on
+    the card, ``EdatBFS`` and ``ReferenceBFS`` (BSP) at 1, 2, 4 and 8
+    ranks (the paper's 384-30,720 cores cut to what one process holds as
+    threads; one cold EDAT run first, at 1 rank, pins the host pool that
+    every later run reuses), parents bit-equal, ``validate_bfs_tree``
+    holding and rejecting a non-neighbour parent and a dropped parent
+    beside its control, totals equal across rank counts, TEPS of both,
+    one 1-rank run stepped level by level under the profiler (device ms
+    against host wall), host bytes and peaks.
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -703,6 +727,8 @@ def phase_build(out):
         "kernels": ptxas.get("ssd_fwd"),
         "dynamic_smem_bytes_at_N128_P64_chunk128": smem}))
     log("rglru_fwd ptxas " + json.dumps({"kernels": ptxas.get("rglru_fwd")}))
+    log("kronecker_gen ptxas " + json.dumps(
+        {"kernels": ptxas.get("kronecker_gen")}))
     fa_smem = {f"{D},{Dv}": fa_ops.mma_smem_bytes(D, Dv)
                for D, Dv in fa_ops.HEAD_DIM_PAIRS}
     log("flash_attention_fwd ptxas " + json.dumps({
@@ -718,6 +744,11 @@ def phase_build(out):
             len(mma) != 1 or mma[0]["spill_store_bytes"]):
         raise AssertionError(f"the tensor-core SSD kernel is missing from "
                              f"the build log or spills: {mma}")
+    kg = ptxas.get("kronecker_gen")
+    if kg is not None and (not kg or any(r["spill_store_bytes"]
+                                         for r in kg)):
+        raise AssertionError(f"the Kronecker kernel is missing from the "
+                             f"build log or spills: {kg}")
     rg = ptxas.get("rglru_fwd")
     if rg is not None and (not rg or any(r["spill_store_bytes"]
                                          for r in rg)):
@@ -4150,12 +4181,14 @@ SSD_TRAIN_STEPS = 4
 # init the state barely crosses a chunk, so no gate would see the term
 # between chunks).  First the plain path's own floor, its float32 run held
 # to its float64 run by the same gate: if that is above the gate, the next
-# weight set (stacked leaves at one layer's fan-in too) is tried instead.
+# weight set is tried instead.  Mamba-2's init alone is left out: its floor
+# was above the gate at 48, 12 and 6 layers (375x, 13x, 4.2x), so the
+# sets start with stacked leaves at one layer's fan-in.
 # Planted: the term between chunks dropped in the plain scan must fail the
 # gate, each rank applying its own grads the replica gate; the
 # chunk-by-chunk control must pass both
 SSD_PARITY_DATA = dict(SSD_TRAIN_DATA, seq=512)
-SSD_PARITY_WEIGHTS = (("mamba2_init",), ("layer_fan_in", "mamba2_init"))
+SSD_PARITY_WEIGHTS = (("layer_fan_in", "mamba2_init"),)
 SSD_TRAIN_FAULT = "no_inter_chunk"
 
 
@@ -4296,8 +4329,9 @@ def phase_train_ssd(out):
 # phase 44: the paper's per-item stream (INSITU["paper"] of the port's
 # configs/edat_paper.py: 1,024 items of 4,096 float64 values a producer),
 # 2 fields, 1:1 computational to analytics ranks; the paper's 1,024-16,384
-# analytics cores cut to the counts of the "big" preset that fit one host
-INSITU_N = (1, 2, 4, 8)
+# analytics cores cut to the counts of the "big" preset that fit one host;
+# n = 8 (27.9 s of a run) left out to make room for phase 45
+INSITU_N = (1, 2, 4)
 INSITU_FIELDS = 2
 INSITU_WORKERS = 4
 # |port - host| <= RTOL x sum|x| for sums, RTOL x sum x^2 for sums of
@@ -4572,6 +4606,652 @@ def phase_insitu(out):
         raise AssertionError(f"insitu checks failed: {failed}")
 
 
+# ---------------------------------------------------- Graph500 BFS (paper §V)
+# phase 45: BFS["paper"] of configs/edat_paper.py (scale 29, edgefactor 16,
+# 384-30,720 cores) cut to the largest graph one card builds whole (scale
+# 25: 2^25 vertices, 2^29 generated edges, ~1e9 CSR neighbours) and to the
+# "big" preset's rank counts that fit one process as threads
+GRAPH_SOURCE = "src/repro_torch/csrc/kronecker_gen.cu"
+GRAPH_REPLACES = ("src/repro/graph/kronecker.py:28 (no TPU kernel: the "
+                  "reference's numpy draws on the host)")
+GRAPH_SCALE = 25
+GRAPH_EDGEFACTOR = 16
+GRAPH_SEED = 20
+GRAPH_RANKS = (1, 2, 4, 8)
+GRAPH_KERNEL_SCALE = 18      # kernel against plain over the whole array
+GRAPH_SAMPLES = 1000         # sampled edges checked at GRAPH_SCALE
+GRAPH_PARITY_SCALE = 20      # card against CPU; the socket session's size
+GRAPH_PARITY_RANKS = 4
+GRAPH_SOCKET_PROCS = 2
+GRAPH_TIME_ITERS = 5
+# at each rank count BSP, then EDAT, whose walls give the TEPS compared;
+# before them, at the first rank count only, one EDAT run whose wall
+# includes pinning the host blocks the level batches come back through
+# (the BFS's host pool keeps them for every later run, whatever its rank
+# count), and whose parents must equal the later run's
+GRAPH_COLD_RUN = "edat_cold"
+GRAPH_RUN_ORDER = ("bsp", "edat")
+GRAPH_DEVICE = "cuda"        # tests/test_torch_graph.py sets "cpu"
+BFS_FAULTS = ("non_neighbour_parent", "parent_dropped")
+# the SMs issue at most 4 warp instructions a clock (one a scheduler)
+INSTRUCTIONS_PER_SM_CLOCK = 4 * 32
+
+
+def bfs_parent_faults(parent, root, deg):
+    """``{fault: a copy of parent with it planted}`` for phase 45's gate:
+    ``non_neighbour_parent`` re-parents the first reached non-root vertex
+    to the first vertex of degree 0 (a neighbour of none);
+    ``parent_dropped`` unsets the parent of the first reached vertex whose
+    parent is not the root, so that vertex's child is left without a
+    level."""
+    import numpy as np
+    parent = np.asarray(parent)
+    idx = np.arange(len(parent))
+    v = int(np.flatnonzero((parent >= 0) & (idx != root))[0])
+    a = parent.copy()
+    a[v] = int(np.flatnonzero(np.asarray(deg) == 0)[0])
+    w = int(np.flatnonzero((parent >= 0) & (parent != root)
+                           & (idx != root))[0])
+    b = parent.copy()
+    b[parent[w]] = -1
+    return {"non_neighbour_parent": a, "parent_dropped": b}
+
+
+def bfs_cpu_faults(parent, root, edges):
+    """The CPU tests' planted faults (host numpy, small graphs):
+    ``root_not_own_parent``, ``parent_edge_missing`` (the first reached
+    non-root vertex re-parented to a reached vertex it has no edge with)
+    and ``unreachable_cycle`` (the two ends of a non-loop edge, both
+    reached and neither the root, made each other's parent)."""
+    import numpy as np
+    parent = np.asarray(parent)
+    pairs = {(int(s), int(d)) for s, d in np.asarray(edges).T if s != d}
+    adj = pairs | {(d, s) for s, d in pairs}
+    reached = [int(x) for x in np.flatnonzero(parent >= 0) if x != root]
+    v = reached[0]
+    root_fault = parent.copy()
+    root_fault[root] = v
+    missing = parent.copy()
+    missing[v] = next(u for u in reached if u != v and (v, u) not in adj)
+    a, b = next((s, d) for s, d in sorted(pairs)
+                if root not in (s, d) and parent[s] >= 0 and parent[d] >= 0)
+    cycle = parent.copy()
+    cycle[a], cycle[b] = b, a
+    return {"root_not_own_parent": root_fault,
+            "parent_edge_missing": missing, "unreachable_cycle": cycle}
+
+
+def _empty_host_cache():
+    """Hand the pinned host blocks that PyTorch's caching host allocator
+    keeps back to the system (the BFS's host pool takes its blocks from
+    it)."""
+    import torch
+    fn = (getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                  None) or getattr(torch._C, "_host_emptyCache", None))
+    if fn is None:
+        raise RuntimeError("this torch has no way to empty its host cache")
+    fn()
+
+
+def _rss_gib():
+    """This process's resident memory now (VmRSS), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    return None
+
+
+def _sampled_draws_check(raw, seed, scale, m, picks, advance=0):
+    """Bit pairs of the sampled edges ``picks`` of ``raw`` (the kernel's
+    (2, m) output) against numpy's own draws at their indices, reached
+    through ``bit_generator.advance`` from ``default_rng(seed)`` (moved
+    ``advance`` draws on first, for the planted fault's run).  Returns
+    (bit pairs checked, bit pairs that differ, the largest |kernel -
+    numpy| of a sampled edge's src or dst)."""
+    import numpy as np
+    from repro_torch.kernels.kronecker import ref as kref
+    from repro_torch.graph.kronecker import thresholds
+    ab, c_norm, a_norm = thresholds()
+    got = raw[:, picks].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    st0 = rng.bit_generator.state
+    bad = err = 0
+    for j, e in enumerate(int(x) for x in picks):
+        src = dst = 0
+        for bit in range(scale):
+            want = []
+            for half in (0, 1):
+                rng.bit_generator.state = st0
+                rng.bit_generator.advance(
+                    advance + kref.draw_index(bit, half, e, m))
+                want.append(rng.random())
+            ii = want[0] > ab
+            jj = want[1] > (c_norm if ii else a_norm)
+            bad += (((got[0, j] >> bit) & 1) != ii) + (
+                ((got[1, j] >> bit) & 1) != jj)
+            src |= int(ii) << bit
+            dst |= int(jj) << bit
+        err = max(err, abs(int(got[0, j]) - src), abs(int(got[1, j]) - dst))
+    return len(picks) * scale, int(bad), err
+
+
+def _sass_loop(lib_path, entry):
+    """Instructions of the innermost nested loop of ``entry`` in the
+    library's SASS (``cuobjdump -sass``): the ranges [target, backward
+    branch] that sit inside another such range, the smallest of them (in
+    the Kronecker kernel, the loop over bits inside the loop over edges).
+    None when the toolkit's cuobjdump is missing or nothing parses."""
+    import re
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+    body = None
+    for chunk in text.split("Function : ")[1:]:
+        if entry in chunk.splitlines()[0]:
+            body = chunk
+    if body is None:
+        return None
+    labels, insts, pending = {}, [], []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            insts.append((addr, m.group(2)))
+    loops = []
+    for addr, text_ in insts:
+        # a branch names its target as a label or as an address
+        m = re.search(r"\bBRA\b\s+`?\(?(\.L_x_\d+|0x[0-9a-f]+)", text_)
+        if not m:
+            continue
+        target = (labels.get(m.group(1)) if m.group(1).startswith(".L")
+                  else int(m.group(1), 16))
+        if target is not None and target < addr:
+            loops.append((target, addr))
+    nested = [(a, b) for a, b in loops
+              if any(a2 <= a and b <= b2 and (a2, b2) != (a, b)
+                     for a2, b2 in loops)]
+    if not nested:
+        return None
+    a, b = min(nested, key=lambda r: r[1] - r[0])
+    return {"instructions": sum(1 for x, _ in insts if a <= x <= b),
+            "loops": len(loops), "nested_loops": len(nested)}
+
+
+def graph_kernel_bound(scale, m, per_iteration, sms, clock_hz):
+    """Least time of one generator call over m edges: its output (src and
+    dst, 16 bytes an edge) over the memory rate, against the instructions
+    of its draws (``per_iteration`` SASS instructions a bit, DRAWS_PER_BIT
+    draws) issued at 4 warp instructions a clock an SM."""
+    nbytes = 16 * m
+    instr = per_iteration * scale * m
+    rate = sms * INSTRUCTIONS_PER_SM_CLOCK * clock_hz
+    t_bytes, t_ops = nbytes / PEAK_BYTES, instr / rate
+    return {"bytes": nbytes, "instructions": instr,
+            "issue_rate_per_s": rate,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _max_sm_clock_hz():
+    """The card's maximum SM clock from nvidia-smi, else the H100 SXM's
+    1,980 MHz boost."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(smi.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        return 1.98e9
+
+
+def _graph_launch(scale, advance=0):
+    """One generator launch on GRAPH_DEVICE at ``scale``: seed GRAPH_SEED,
+    moved ``advance`` draws on first."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.kronecker import thresholds
+    from repro_torch.kernels.kronecker import ops as kops
+    rng = np.random.default_rng(GRAPH_SEED)
+    rng.bit_generator.advance(advance)
+    return kops.kronecker_gen(rng, scale, (1 << scale) * GRAPH_EDGEFACTOR,
+                              *thresholds(), torch.device(GRAPH_DEVICE))
+
+
+def _graph_kernel_device_ms(scale, event_ms):
+    """The generator kernel's profiler device ms at ``scale`` and where
+    it was read: in this process, or, where the profiler keeps no launch
+    of it here in 3 windows, in a fresh process (``_graph_fresh_device_ms``).
+    In a fresh process the profiler kept every window of the kernel at
+    scales 18-25 in every mode tried; in two runs of every phase and one
+    of phases 43 and 45 it kept no device event at all at GRAPH_SCALE
+    here, both with the host traced and without.  Raises where neither
+    keeps one."""
+    import torch
+    try:
+        return kernel_device_ms(lambda: _graph_launch(scale),
+                                "kronecker_gen", event_ms,
+                                iters=GRAPH_TIME_ITERS, warmup=1, lead=2,
+                                tries=3)[0], "this process"
+    except AssertionError as exc:
+        free, total = torch.cuda.mem_get_info()
+        log(f"graph_kernel: {exc} (device memory free {free / 2 ** 30:.2f} "
+            f"of {total / 2 ** 30:.2f} GiB); profiling in a fresh process")
+    return _graph_fresh_device_ms(scale, event_ms), "a fresh process"
+
+
+def _graph_fresh_device_ms(scale, event_ms):
+    """``_graph_profile_child`` run in a new interpreter (the kernel's
+    library is already built): its device ms, or AssertionError with its
+    output."""
+    code = (f"import sys; sys.path[:0] = [{HERE!r}, {SRC!r}]; "
+            f"import chip_smoke; chip_smoke._graph_profile_child({scale}, "
+            f"{event_ms!r})")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the fresh process's profile failed "
+                             f"(rc {proc.returncode}): "
+                             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    return json.loads(lines[-1])["device_ms"]
+
+
+def _graph_profile_child(scale, event_ms):
+    """In a fresh process: the generator's profiler device ms at
+    ``scale``, printed as the last line's JSON."""
+    ms, kept, windows = kernel_device_ms(
+        lambda: _graph_launch(scale), "kronecker_gen", event_ms,
+        iters=GRAPH_TIME_ITERS, warmup=1, lead=2)
+    print(json.dumps({"device_ms": ms, "kept": kept, "windows": windows}))
+
+
+def _graph_kernel(out):
+    """The generator's kernel against its plain version and numpy: the
+    whole array at GRAPH_KERNEL_SCALE, GRAPH_SAMPLES sampled edges at
+    GRAPH_SCALE, each beside the kernel run one draw late, which must fail
+    both; its times (CUDA events, profiler device ms) at both scales, the
+    plain version's at GRAPH_KERNEL_SCALE, and its bound from its SASS."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kronecker import ops as kops
+    from repro_torch.graph.kronecker import thresholds
+    from repro_torch.kernels.kronecker import ref as kref
+    thr = thresholds()
+    launch = _graph_launch
+    rows = {}
+    scale = GRAPH_KERNEL_SCALE
+    m = (1 << scale) * GRAPH_EDGEFACTOR
+    t0 = time.monotonic()
+    plain = kref.kronecker_draws_reference(np.random.default_rng(GRAPH_SEED),
+                                           scale, m, *thr)
+    plain_s = time.monotonic() - t0
+    kern = launch(scale).cpu()
+    late = launch(scale, advance=1).cpu()
+    whole = {"control_bit_equal": bool(torch.equal(kern, plain)),
+             "max_abs_err": int((kern - plain).abs().max()),
+             "one_draw_late_bit_equal": bool(torch.equal(late, plain)),
+             "one_draw_late_edges_differing": int(
+                 (late != plain).any(0).sum())}
+    del kern, late
+    ms = cuda_ms(lambda: launch(scale), iters=GRAPH_TIME_ITERS, warmup=1)
+    dms, dms_in = _graph_kernel_device_ms(scale, ms)
+    rows[scale] = {"scale": scale, "edgefactor": GRAPH_EDGEFACTOR, "m": m,
+                   "path": None, "ms": ms, "device_ms": dms,
+                   "device_ms_in": dms_in,
+                   "plain_ms": plain_s * 1e3, **whole}
+    scale = GRAPH_SCALE
+    m = (1 << scale) * GRAPH_EDGEFACTOR
+    picks = np.sort(np.random.default_rng(GRAPH_SEED + 1).choice(
+        m, GRAPH_SAMPLES, replace=False))
+    raw = launch(scale)
+    torch.cuda.synchronize()
+    checked, bad, err = _sampled_draws_check(raw, GRAPH_SEED, scale, m,
+                                             picks)
+    del raw
+    raw = launch(scale, advance=1)
+    _, bad_late, _ = _sampled_draws_check(raw, GRAPH_SEED, scale, m, picks)
+    del raw
+    _free()
+    ms = cuda_ms(lambda: launch(scale), iters=GRAPH_TIME_ITERS, warmup=1)
+    _free()
+    dms, dms_in = _graph_kernel_device_ms(scale, ms)
+    sass = _sass_loop(_build.library_path("kronecker_gen"),
+                      "kronecker_gen_kernel")
+    if sass is None:
+        raise AssertionError("the generator's loop over bits could not be "
+                             "read from its SASS (cuobjdump), so its bound "
+                             "is not known")
+    per_it = sass["instructions"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _max_sm_clock_hz()
+    bound = graph_kernel_bound(scale, m, per_it, sms, clock)
+    rows[scale] = {"scale": scale, "edgefactor": GRAPH_EDGEFACTOR, "m": m,
+                   "path": "graph500-bfs", "ms": ms, "device_ms": dms,
+                   "device_ms_in": dms_in,
+                   "max_abs_err": err, "library_ms": None,
+                   # numpy's draws on the host take minutes here: the
+                   # plain version's time is the whole array's at
+                   # GRAPH_KERNEL_SCALE
+                   "plain_ms": rows[GRAPH_KERNEL_SCALE]["plain_ms"],
+                   "plain_scale": GRAPH_KERNEL_SCALE,
+                   "bit_pairs_checked": checked, "control_bad": bad,
+                   "one_draw_late_bad": bad_late,
+                   "launch": kops.launch_shape(m), "sass_loop": sass,
+                   "sass_instructions_per_bit": per_it,
+                   "draws_per_bit": kref.DRAWS_PER_BIT,
+                   "sm_clock_hz": clock, "sms": sms, **bound}
+    for k in ("bound_ms", "bound_by"):
+        rows[GRAPH_KERNEL_SCALE][k] = graph_kernel_bound(
+            GRAPH_KERNEL_SCALE, rows[GRAPH_KERNEL_SCALE]["m"], per_it, sms,
+            clock)[k]
+    for r in rows.values():
+        log(f"graph_kernel {json.dumps(r)}")
+    checks = {
+        f"scale {GRAPH_KERNEL_SCALE}: kernel bit-equal to plain":
+            whole["control_bit_equal"],
+        f"scale {GRAPH_KERNEL_SCALE}: one draw late differs":
+            not whole["one_draw_late_bit_equal"],
+        f"scale {GRAPH_SCALE}: {checked} sampled bit pairs equal numpy's":
+            bad == 0 and err == 0,
+        f"scale {GRAPH_SCALE}: one draw late fails the sample":
+            bad_late > 0,
+    }
+    out["graph_kernel_rows"] = list(rows.values())
+    return checks
+
+
+def _bfs_level_profile(csr, root):
+    """One 1-rank BFS stepped level by level on this thread through the
+    port's own level functions (``_upload``, ``_settle``, ``_expand``),
+    each level in its own profiler window: its device ms (kernels and
+    copies, from the profiler's device events) against its host wall."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.graph import bfs as gbfs
+    dev = csr.device
+    lo, hi = csr.local_range(0)
+    parent = torch.full((hi - lo,), -1, dtype=torch.int64, device=dev)
+    batches = [np.array([[root, root]], np.int64)]
+    levels = []
+    while True:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            frontier = gbfs._settle(parent, gbfs._upload(batches, dev), lo)
+            out, traversed = gbfs._expand(csr, 0, frontier)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        device_ms = copy_ms = 0.0
+        n_events = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                d = (e.time_range.end - e.time_range.start) / 1e3
+                device_ms += d
+                copy_ms += d if "memcpy" in e.name.lower() else 0.0
+                n_events += 1
+        levels.append({"level": len(levels), "frontier": int(len(frontier)),
+                       "expanded": traversed,
+                       "batch_bytes_in": sum(b.nbytes for b in batches),
+                       "batch_bytes_out": sum(b.nbytes for b in out),
+                       "host_wall_ms": wall * 1e3, "device_ms": device_ms,
+                       "copy_ms": copy_ms, "device_events": n_events,
+                       "busy_share": device_ms / (wall * 1e3)})
+        batches = out
+        if not len(frontier):
+            break
+    full = np.full(csr.n_vertices, -1, np.int64)
+    full[lo:hi] = parent.cpu().numpy()
+    return levels, full
+
+
+def _bfs_socket(root, want_parent):
+    """One socket session: ``bfs_program`` at GRAPH_PARITY_SCALE over
+    GRAPH_PARITY_RANKS ranks on GRAPH_SOCKET_PROCS spawned processes, each
+    building the graph on the card; its parents against the in-process
+    card run's, the children's expansions by device, the parent's own
+    count unmoved."""
+    import numpy as np
+    from repro_torch import edat
+    from repro_torch.graph import bfs as gbfs
+    parent0 = dict(gbfs.calls_by_device)
+    t0 = time.monotonic()
+    with edat.Session(GRAPH_PARITY_RANKS, transport="socket",
+                      procs=GRAPH_SOCKET_PROCS, timeout=300) as s:
+        stamp = s.call(0, _monotonic_stamp)
+        s.run(edat.deferred(gbfs.bfs_program, GRAPH_PARITY_RANKS,
+                            GRAPH_PARITY_SCALE, GRAPH_EDGEFACTOR,
+                            GRAPH_SEED, root, device=GRAPH_DEVICE))
+        res, stats = s.gather(), s.stats
+        started = stamp.result(timeout=60)
+    session_s = time.monotonic() - t0
+    run_s = float(stats["run_seconds"])
+    wire = stats.get("transport", {})
+    traversed = int(np.sum(res["traversed"]))
+    row = {"scale": GRAPH_PARITY_SCALE, "ranks": GRAPH_PARITY_RANKS,
+           "procs": GRAPH_SOCKET_PROCS, "session_s": session_s,
+           "spawn_build_s": started - t0, "run_seconds": run_s,
+           "traversed": traversed, "teps": traversed / run_s,
+           "calls_by_device": res["calls_by_device"],
+           "host_bytes": res["host_bytes"],
+           "wire": {k: wire.get(k) for k in (
+               "wire_events_sent", "writes", "wire_bytes", "dropped")}}
+    checks = {
+        "socket parents equal the in-process card run's":
+            np.array_equal(res["parent"], want_parent),
+        "the children expanded on cuda only":
+            set(res["calls_by_device"] or {}) == {GRAPH_DEVICE},
+        "events crossed the wire": (wire.get("wire_events_sent") or 0) > 0,
+        "the parent's calls_by_device unmoved":
+            dict(gbfs.calls_by_device) == parent0,
+    }
+    return row, checks
+
+
+def phase_graph(out):
+    """The paper's Graph500 BFS (§V) on the card: the generator's kernel
+    (``_graph_kernel``); the CSR and a 4-rank EDAT BFS at
+    GRAPH_PARITY_SCALE against the CPU path on the same edges; then the
+    paper's run at GRAPH_SCALE (edgefactor 16, seed 20, ``default_root``'s
+    rule, checked against ``default_root`` at GRAPH_PARITY_SCALE, on the
+    edges the run generated): the generator and the CSR on the card,
+    ``EdatBFS`` and ``ReferenceBFS`` (BSP) at each of GRAPH_RANKS, parents
+    bit-equal, ``validate_bfs_tree`` holding and rejecting two planted
+    faults beside its control, totals equal across rank counts; TEPS,
+    levels, a level-by-level profile, host bytes, peaks; one socket
+    session."""
+    import resource
+    import numpy as np
+    import torch
+    from repro_torch.graph import (EdatBFS, ReferenceBFS, build_csr,
+                                   default_root, kronecker_edges,
+                                   validate_bfs_tree)
+    from repro_torch.graph import bfs as gbfs
+    from repro_torch.graph import kronecker as gkron
+    from repro_torch.kernels.kronecker import ops as kops
+    t_phase = time.monotonic()
+    dev = torch.device(GRAPH_DEVICE)
+    checks = _graph_kernel(out)
+    sections = {"kernel": time.monotonic() - t_phase}
+
+    # the CSR and a 4-rank BFS: the card against the CPU path, same edges
+    scale, R = GRAPH_PARITY_SCALE, GRAPH_PARITY_RANKS
+    n = 1 << scale
+    edges = kronecker_edges(scale, GRAPH_EDGEFACTOR, GRAPH_SEED, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    csr = build_csr(edges, n, R)
+    torch.cuda.synchronize()
+    csr_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    host_csr = build_csr(edges.cpu(), n, R)
+    host_csr_s = time.monotonic() - t0
+    checks["parity: the card's CSR equals the CPU's rank for rank"] = all(
+        torch.equal(a.cpu(), b) for r in range(R)
+        for a, b in ((csr.indptr[r], host_csr.indptr[r]),
+                     (csr.indices[r], host_csr.indices[r]))) and (
+        csr.n_edges == host_csr.n_edges)
+    root20 = default_root(scale, GRAPH_EDGEFACTOR, GRAPH_SEED, device=dev)
+    deg = torch.bincount(edges.reshape(-1), minlength=n)
+    checks["default_root is the first vertex of nonzero degree"] = \
+        root20 == int(torch.nonzero(deg)[0, 0])
+    card = EdatBFS(csr, device=dev)
+    t0 = time.monotonic()
+    card_parent = card.run(root20)
+    card_s = time.monotonic() - t0
+    cpu = EdatBFS(host_csr, device="cpu")
+    t0 = time.monotonic()
+    cpu_parent = cpu.run(root20)
+    cpu_s = time.monotonic() - t0
+    checks["parity: the card's parents equal the CPU path's"] = \
+        np.array_equal(card_parent, cpu_parent)
+    checks["parity: traversed equal"] = card.traversed == cpu.traversed
+    parity = {"scale": scale, "ranks": R, "root": root20,
+              "csr_card_s": csr_s, "csr_cpu_s": host_csr_s,
+              "n_edges": csr.n_edges, "bfs_card_s": card_s,
+              "bfs_cpu_s": cpu_s, "traversed": sum(card.traversed)}
+    log(f"graph_parity {json.dumps(parity)}")
+    del edges, deg, csr, host_csr, card, cpu
+    _free()
+    sections["parity"] = time.monotonic() - t_phase - sum(sections.values())
+    socket_row, socket_checks = _bfs_socket(root20, card_parent)
+    sections["socket"] = time.monotonic() - t_phase - sum(sections.values())
+    log(f"graph_socket {json.dumps(socket_row)}")
+    checks.update({f"socket: {k}": v for k, v in socket_checks.items()})
+
+    # the paper's run: the main path, counted from 0
+    scale = GRAPH_SCALE
+    n = 1 << scale
+    kops.reset_counts()
+    gbfs.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    edges = kronecker_edges(scale, GRAPH_EDGEFACTOR, GRAPH_SEED, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    perm_s = gkron.permutation_seconds
+    # default_root's rule on the edges at hand (it would generate them
+    # again)
+    deg = torch.bincount(edges.reshape(-1), minlength=n)
+    root = int(torch.nonzero(deg)[0, 0])
+    deg = deg.cpu().numpy()
+    runs, parents, level_rows = [], {}, None
+    for R in GRAPH_RANKS:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        csr = build_csr(edges, n, R)
+        torch.cuda.synchronize()
+        csr_s = time.monotonic() - t0
+        row = {"ranks": R, "csr_s": csr_s, "n_edges": csr.n_edges}
+        cold = (GRAPH_COLD_RUN,) if R == GRAPH_RANKS[0] else ()
+        for name in cold + GRAPH_RUN_ORDER:
+            prog = (ReferenceBFS(csr, device=dev) if name == "bsp"
+                    else EdatBFS(csr, device=dev))
+            t0 = time.monotonic()
+            parent = prog.run(root)
+            wall = time.monotonic() - t0
+            traversed = sum(prog.traversed)
+            row[name] = {"wall_s": wall, "traversed": traversed,
+                         "teps": traversed / wall,
+                         "host_bytes": sum(prog.host_bytes),
+                         "reached": int((parent >= 0).sum())}
+            if name != "bsp":
+                row[name]["levels"] = prog.levels[0]
+            row[name]["host_pool_gib"] = gbfs.host_pool.pinned_bytes / 2 ** 30
+            parents[(R, name)] = parent
+        if cold:
+            row["edat_cold_parents_equal"] = bool(np.array_equal(
+                parents.pop((R, GRAPH_COLD_RUN)), parents[(R, "edat")]))
+            checks[f"{R} ranks: the cold EDAT run's parents equal the "
+                   f"warm's"] = row["edat_cold_parents_equal"]
+        t0 = time.monotonic()
+        row["valid"] = validate_bfs_tree(edges, parents[(R, "edat")], root)
+        row["validate_s"] = time.monotonic() - t0
+        row["edat_parents_equal_bsp"] = bool(np.array_equal(
+            parents[(R, "edat")], parents[(R, "bsp")]))
+        if R == GRAPH_RANKS[0]:
+            level_rows, stepped = _bfs_level_profile(csr, root)
+            row["stepped_parents_equal_edat"] = bool(
+                np.array_equal(stepped, parents[(R, "edat")]))
+            checks["1 rank: the stepped run's parents equal EDAT's"] = \
+                row["stepped_parents_equal_edat"]
+        parents.pop((R, "bsp"))
+        del prog
+        row["rss_gib_after"] = _rss_gib()
+        log(f"graph_run {json.dumps(row)}")
+        runs.append(row)
+        checks[f"{R} ranks: EDAT parents bit-equal to BSP's"] = \
+            row["edat_parents_equal_bsp"]
+        checks[f"{R} ranks: validate_bfs_tree holds"] = row["valid"]
+        del csr
+        _free()
+    sections["scale_25"] = time.monotonic() - t_phase - sum(sections.values())
+    first = runs[0]
+    for row in runs[1:]:
+        for name in ("edat", "bsp"):
+            for k in ("reached", "traversed"):
+                checks[f"{row['ranks']} ranks {name}: {k} equal to 1 "
+                       f"rank's"] = row[name][k] == first["edat"][k]
+    faults = bfs_parent_faults(parents[(GRAPH_RANKS[0], "edat")], root, deg)
+    verdicts = {f: validate_bfs_tree(edges, p, root)
+                for f, p in faults.items()}
+    for f, ok in verdicts.items():
+        checks[f"{f} fails validate_bfs_tree"] = not ok
+    main_path = {"kernel_launches": kops.kernel_launches,
+                 "plain_calls": kops.plain_calls,
+                 "calls_by_device": dict(gbfs.calls_by_device)}
+    checks["the main path launched the generator's kernel"] = \
+        kops.kernel_launches > 0
+    checks["the main path never called the plain generator"] = \
+        kops.plain_calls == 0
+    checks["every expansion of the main path ran on cuda"] = \
+        set(gbfs.calls_by_device) == {dev.type}
+    out.setdefault("main_path_launches", {})["graph500-bfs"] = {
+        "kronecker_gen": kops.kernel_launches}
+    pool_gib = gbfs.host_pool.pinned_bytes / 2 ** 30
+    gbfs.host_pool.release()
+    _empty_host_cache()
+    device_ms = sum(r["device_ms"] for r in level_rows)
+    wall_ms = sum(r["host_wall_ms"] for r in level_rows)
+    biggest = max(level_rows, key=lambda r: r["expanded"])
+    line = {
+        "card": out.get("card"), "scale": scale,
+        "edgefactor": GRAPH_EDGEFACTOR, "seed": GRAPH_SEED, "root": root,
+        "generate_s": gen_s, "permutation_host_s": perm_s, "runs": runs,
+        "teps": {r["ranks"]: {"edat": r["edat"]["teps"],
+                              "bsp": r["bsp"]["teps"]} for r in runs},
+        "levels": level_rows, "stepped_device_ms": device_ms,
+        "stepped_host_wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
+        "largest_level": biggest, "fault_verdicts": verdicts,
+        "main_path": main_path, "parity": parity, "socket": socket_row,
+        "host_pool_gib": pool_gib, "max_memory_allocated_gib":
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+        "peak_rss_gib": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+        "rss_gib": _rss_gib(), "sections_s": sections,
+        "phase_s": time.monotonic() - t_phase}
+    log(f"graph {json.dumps(line)}")
+    out["graph"] = line
+    failed = [k for k, ok in checks.items() if not ok]
+    log("graph checks " + json.dumps(checks))
+    if failed:
+        raise AssertionError(f"graph checks failed: {failed}")
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -4631,6 +5311,7 @@ PHASES = {
     43: ("mamba2-370m train at 4,096 tokens (event-driven trainer)",
          phase_train_ssd),
     44: ("MONC in-situ analytics (paper §VI)", phase_insitu),
+    45: ("Graph500 BFS (paper §V)", phase_graph),
 }
 
 
@@ -4654,6 +5335,8 @@ def kernels_line(out):
                       and r["T"] == SSD_TIMED_T), None)
     rg_timed = next((r for r in rg_rows if r["path"]
                      and r["T"] == RG_TIMED_T), None)
+    graph_rows = out.get("graph_kernel_rows", [])
+    graph_timed = next((r for r in graph_rows if r["path"]), None)
     entries = []
     for name, source, replaces, rows, timed, tol, rule, keys in (
             ("flash_attention_fwd", FA_SOURCE, FA_REPLACES, fa_rows,
@@ -4668,7 +5351,14 @@ def kernels_line(out):
              ("B", "T", "H", "G", "N", "P", "chunk", "dtype")),
             ("rglru_fwd", RG_SOURCE, RG_REPLACES, rg_rows, rg_timed, RG_TOL,
              f"|kernel - plain| <= {RG_TOL} * (1 + |plain|)",
-             ("B", "T", "W", "h0", "lam"))):
+             ("B", "T", "W", "h0", "lam")),
+            ("kronecker_gen", GRAPH_SOURCE, GRAPH_REPLACES, graph_rows,
+             graph_timed, 0,
+             f"bit-equal: src and dst of every edge at scale "
+             f"{GRAPH_KERNEL_SCALE} against the plain version, and of "
+             f"{GRAPH_SAMPLES} sampled edges at scale {GRAPH_SCALE} against "
+             f"numpy's draws reached by advance",
+             ("scale", "edgefactor", "m"))):
         path_err = max((r["max_abs_err"] for r in rows if r["path"]),
                        default=None)
         paths = {arch: n[name] for arch, n in by_path.items() if name in n}
@@ -4772,6 +5462,22 @@ def kernels_line(out):
             launch = timed["launch"] if timed else {}
             for k in ("blocks", "threads_per_block", "segment_steps"):
                 entry[k] = launch.get(k)
+        if name == "kronecker_gen":
+            entry["library"] = ("none: no PyTorch call draws numpy's PCG64 "
+                                "stream")
+            # the plain version (numpy's draws on the host) timed over the
+            # whole array at GRAPH_KERNEL_SCALE, the kernel beside it there
+            small = next((r for r in rows if not r["path"]), None)
+            entry["plain_scale"] = timed["plain_scale"] if timed else None
+            entry["at_kernel_scale"] = small and {k: small[k] for k in (
+                "scale", "m", "ms", "device_ms", "plain_ms", "max_abs_err",
+                "bound_ms", "bound_by")}
+            for k, key in (("launch", "launch"),
+                           ("sass_instructions_per_bit",
+                            "sass_instructions_per_bit"),
+                           ("sampled_bit_pairs", "bit_pairs_checked"),
+                           ("sampled_bad_bit_pairs", "control_bad")):
+                entry[k] = timed[key] if timed else None
         entries.append(entry)
     return {"kernels": entries}
 

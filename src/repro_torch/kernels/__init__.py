@@ -12,11 +12,12 @@ def launch_counts() -> Dict[str, Tuple[int, int]]:
     """``{kernel: (kernel launches, plain calls)}`` of every kernel's
     wrapper in this process, now."""
     from .flash_attention import ops as fa
+    from .kronecker import ops as kron
     from .rglru import ops as rglru
     from .ssd import ops as ssd
     return {name: (ops.kernel_launches, ops.plain_calls)
             for name, ops in (("flash_attention_fwd", fa), ("ssd_fwd", ssd),
-                              ("rglru_fwd", rglru))}
+                              ("rglru_fwd", rglru), ("kronecker_gen", kron))}
 
 
 def variant_counts() -> Dict[str, Dict[str, int]]:

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("flash_attention_fwd", "ssd_fwd", "rglru_fwd")
+SOURCES = ("flash_attention_fwd", "ssd_fwd", "rglru_fwd", "kronecker_gen")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

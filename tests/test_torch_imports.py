@@ -13,6 +13,9 @@ from repro_torch.analytics import (BespokeAnalytics,         # noqa: E402
                                    EdatAnalytics, InsituCfg,
                                    distributed_insitu, insitu_program)
 from repro_torch.configs import ARCHS, reduce_cfg            # noqa: E402
+from repro_torch.graph import (EdatBFS, ReferenceBFS,        # noqa: E402
+                               bfs_program, build_csr, default_root,
+                               distributed_bfs, kronecker_edges)
 from repro_torch.data import DataCfg                         # noqa: E402
 from repro_torch.models import build_model                   # noqa: E402
 from repro_torch.net.launch import ProcessGroup              # noqa: E402
@@ -49,7 +52,12 @@ for name in ("repro_torch.models.mamba2", "repro_torch.models.moe",
              "repro_torch.runtime_dist.trainer", "repro_torch.train.step",
              "repro_torch.tree", "repro_torch.analytics",
              "repro_torch.analytics.insitu", "repro_torch.insights",
-             "repro_torch.configs.edat_paper", "repro_torch.core.device"):
+             "repro_torch.configs.edat_paper", "repro_torch.core.device",
+             "repro_torch.graph", "repro_torch.graph.bfs",
+             "repro_torch.graph.kronecker",
+             "repro_torch.kernels.kronecker.ops",
+             "repro_torch.kernels.kronecker.ref",
+             "repro_torch.durable.demo"):
     assert name in names, name
 """
 
@@ -61,13 +69,18 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     # configs, runtime, net, models, kernels, serve, data, optim,
-    # checkpoint, train, runtime_dist, analytics, insights
-    assert n_modules >= 57
+    # checkpoint, train, runtime_dist, analytics, insights, graph
+    assert n_modules >= 63
 
 
 CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
 DATA = DataCfg(vocab=CFG.vocab, seq=16, global_batch=2)
 TRAINER = rtrainer.TrainerCfg(steps=1)
+
+
+def _csr():
+    """A small CSR on the CPU (building it needs no card)."""
+    return build_csr(kronecker_edges(6, device="cpu"), 64, 2)
 
 
 def _deprecated(fn):
@@ -104,6 +117,13 @@ ENTRY_POINTS = {
     "insitu_program": lambda: insitu_program({}),
     "distributed_insitu": lambda: _deprecated(
         lambda: distributed_insitu(InsituCfg(), n_procs=2)),
+    "kronecker_edges": lambda: kronecker_edges(6),
+    "default_root": lambda: default_root(6),
+    "EdatBFS": lambda: EdatBFS(_csr()),
+    "ReferenceBFS": lambda: ReferenceBFS(_csr()),
+    "bfs_program": lambda: bfs_program(2, 6),
+    "distributed_bfs": lambda: _deprecated(
+        lambda: distributed_bfs(2, 6, n_procs=2)),
 }
 
 

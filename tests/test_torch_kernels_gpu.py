@@ -719,3 +719,59 @@ def test_insitu_analytics_on_card(cuda):
     assert gates["control"]["ok"], gates["control"]
     for fault in chip_smoke.INSITU_FAULTS:
         assert not gates[fault]["ok"], (fault, gates[fault])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edgefactor,seed", [(16, 20), (8, 7)])
+def test_kronecker_kernel_matches_numpy_draws(cuda, edgefactor, seed):
+    """The generator's kernel at scale 12 against the plain version's
+    numpy draws, bit for bit over every edge; the generator ends where
+    the plain version leaves it; a run one draw late differs; and the
+    whole edge list on the card equals the one on the CPU."""
+    from repro_torch.graph import kronecker
+    from repro_torch.kernels.kronecker import ops as kops
+    from repro_torch.kernels.kronecker import ref as kref
+    thr = kronecker.thresholds()
+    scale = 12
+    m = (1 << scale) * edgefactor
+    a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+    want = kref.kronecker_draws_reference(a, scale, m, *thr)
+    before = kops.kernel_launches
+    got = kops.kronecker_draws(b, scale, m, *thr, device=cuda)
+    torch.cuda.synchronize()
+    assert kops.kernel_launches == before + 1
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert a.bit_generator.state == b.bit_generator.state
+    late = np.random.default_rng(seed)
+    late.bit_generator.advance(1)
+    assert not torch.equal(kops.kronecker_gen(late, scale, m, *thr,
+                                              cuda).cpu(), want)
+    assert torch.equal(
+        kronecker.kronecker_edges(scale, edgefactor, seed,
+                                  device=cuda).cpu(),
+        kronecker.kronecker_edges(scale, edgefactor, seed, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_bfs_on_card_equals_cpu_through_the_host_pool(cuda):
+    """EdatBFS and ReferenceBFS at scale 12 on the card, at 1, 2 and 4
+    ranks, give the CPU path's parents; their level batches come back
+    through the host pool's page-locked blocks, which the first rank
+    count's runs leave enough of for the later ones."""
+    from repro_torch import graph
+    from repro_torch.graph import bfs as gbfs
+    scale = 12
+    edges = graph.kronecker_edges(scale, device=cuda)
+    root = graph.default_root(scale, device=cuda)
+    gbfs.host_pool.release()
+    pinned = []
+    for R in (1, 2, 4):
+        csr = graph.build_csr(edges, 1 << scale, R)
+        want = graph.EdatBFS(csr.to("cpu"), device="cpu").run(root)
+        for prog in (graph.EdatBFS(csr, device=cuda),
+                     graph.ReferenceBFS(csr, device=cuda)):
+            assert np.array_equal(prog.run(root), want), (R, prog)
+        assert graph.validate_bfs_tree(edges, want, root)
+        pinned.append(gbfs.host_pool.pinned_bytes)
+    assert pinned[0] > 0 and pinned[1:] == pinned[:1] * 2
+    gbfs.host_pool.release()

@@ -267,9 +267,9 @@ def test_colocated_ranks_exchange_zero_wire_frames():
         SocketTransport = _mod(pkg, "net").SocketTransport
         a, b = socket.socketpair()
         ts = [SocketTransport(0, 4, {2: a}, local_ranks=(0, 1),
-                              placement=placement),
+                              placement=placement, **HB),
               SocketTransport(2, 4, {0: b}, local_ranks=(2, 3),
-                              placement=placement)]
+                              placement=placement, **HB)]
         rts = [edat.Runtime(4, transport=t, unconsumed="ignore") for t in ts]
         got = {r: {"co": [], "far": []} for r in range(4)}
 
@@ -336,7 +336,7 @@ def test_elastic_join_replays_durable_work_onto_replacement(tmp_path):
     work; a replacement joins the running world, the durable log replays
     the stranded work, and the result equals the uninterrupted run's
     with nothing left pending."""
-    from repro.durable.demo import expected, wait_for_completions
+    from repro_torch.durable.demo import expected, wait_for_completions
     items, kill = 32, 2
 
     def program(pkg):

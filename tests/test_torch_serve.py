@@ -169,10 +169,11 @@ def _serve_matches_reference(cfgs, jax_params, transport, procs,
     assert res["queue_left"] == 0
     assert res["tick_execs"] == res["steps"]
     assert res["kernel_launches"] == {"flash_attention_fwd": 0,
-                                      "ssd_fwd": 0, "rglru_fwd": 0}
+                                      "ssd_fwd": 0, "rglru_fwd": 0,
+                                      "kronecker_gen": 0}
     assert res["plain_calls"] == {
         "flash_attention_fwd": res["prefills"] * cfg.n_layers,
-        "ssd_fwd": 0, "rglru_fwd": 0}
+        "ssd_fwd": 0, "rglru_fwd": 0, "kronecker_gen": 0}
     assert res["launches_by_variant"] == {
         "flash_attention_fwd": {"mma_bf16": 0, "simt": 0},
         "ssd_fwd": {"mma_bf16": 0, "simt": 0}}
