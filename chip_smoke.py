@@ -8,8 +8,9 @@ toolkit::
     python3 chip_smoke.py --phases 1,2,3 --json out/smoke.json
 
 It drives the port only (no jax, nothing of ``repro``), in phases that each
-raise on failure.  Thirteen main paths are driven, each at full width, all but
-deepseek-v3-671b at full depth: serving gemma3-1b (flash attention),
+raise on failure.  Thirteen main paths (and the port's train and serve
+command lines) are driven, each at full width, all but deepseek-v3-671b at
+full depth: serving gemma3-1b (flash attention),
 mamba2-370m (the SSD scan),
 recurrentgemma-9b (the RG-LRU recurrence and flash attention on its local
 layers), granite-moe-1b-a400m (flash attention at 16 heads, 8 KV heads of
@@ -214,8 +215,9 @@ by a kernel on the card and every level's expansion there:
     peak, equal losses, grads within the control's spread); the chunked
     backward against the dense one at S = 8,192 and 16,384, window 512 and
     none, float32, with each peak; and float32 sgdm runs of the kernel
-    path against the chunked plain path, phase 19's gate, which must
-    reject the window mask moved one key inside the chunked path;
+    path against the chunked plain path at 6 layers (``PARITY_CUTS``, as
+    phase 19's), phase 19's gate, which must reject the window mask moved
+    one key inside the chunked path;
 41. whisper-tiny at full width and depth (4 + 4 layers), bf16: for each
     of three prompts (100, 256, 384 tokens) over 1,500 seeded stub frames
     a prefill through ``make_prefill_step`` into a cache of 512 and 32
@@ -288,7 +290,22 @@ by a kernel on the card and every level's expansion there:
     holding and rejecting a non-neighbour parent and a dropped parent
     beside its control, totals equal across rank counts, TEPS of both,
     one 1-rank run stepped level by level under the profiler (device ms
-    against host wall), host bytes and peaks.
+    against host wall), host bytes and peaks;
+46. the port's own command lines (``repro_torch.launch``), in process
+    through their ``main(argv)``: the serve CLI at gemma3-1b's full width
+    and depth (4 prompts of 384 seeded tokens, 16 new tokens each: 26
+    ``mma_bf16`` flash launches for the prefill, none in decode, the
+    parameters on cuda, the tokens (4, 16) inside the vocabulary), the
+    train CLI's 3 AdamW steps of 2 x 512 tokens (52 ``mma_bf16`` launches
+    a step, forward and remat recompute; finite losses), then the
+    dry-run's cell of the train CLI's own shape on a (1, 1) mesh, whose
+    parameter and optimizer-state bytes must equal the growth of the
+    card's requested bytes across the CLI's parameter and state creation
+    within 512 bytes a tensor, and ``memory_allocated``'s growth within
+    the caching allocator's block rounding (512 bytes a tensor, and up to
+    1 MiB more a tensor over 1 MiB, whose block it may leave unsplit), and
+    the step's achieved FLOP/s from the dry-run's plain-path FLOPs (masked
+    tiles included) over the measured step wall (printed, not gated).
 
 Every phase starts with the card's memory freed and prints its peak
 (``torch.cuda.max_memory_allocated``).
@@ -823,28 +840,41 @@ def _last_key_dropped(q, k, v, *, scale, **_):
     return out.reshape(B, H, S, v.shape[-1])
 
 
+_flex_compiled = {}     # the last compile of ``_flex``, by its key
+
+
 def _flex(q, k, v, *, scale, window, softcap):
     """One call of ``flex_attention``, compiled for these inputs, with the
     tanh softcap as its score_mod (on the scaled scores, before the mask,
     as the plain version caps them) and the causal/window mask as its
     block mask: the library yardstick of a softcapped row, timed here and
-    used nowhere in the port."""
+    used nowhere in the port.  A window of S keys or more masks nothing,
+    so such a row is the same function as the unwindowed row of its shape
+    and takes that row's compile: each shape compiles once (since PR 38;
+    before, each of gemma2-2b's 8 rows compiled its own)."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
-
-    def score_mod(s, b, h, qi, ki):
-        return softcap * torch.tanh(s / softcap)
-
-    def mask_mod(b, h, qi, ki):
-        keep = ki <= qi
-        if window is not None:
-            keep = keep & (qi - ki < window)
-        return keep
     S = q.shape[2]
-    mask = create_block_mask(mask_mod, None, None, S, S, device=q.device)
-    torch._dynamo.reset()       # each row compiles its own shape
-    call = torch.compile(flex_attention, dynamic=False)
+    if window is not None and window >= S:
+        window = None
+    key = (tuple(q.shape), tuple(k.shape), q.dtype, window, softcap, scale)
+    if key not in _flex_compiled:
+        def score_mod(s, b, h, qi, ki):
+            return softcap * torch.tanh(s / softcap)
+
+        def mask_mod(b, h, qi, ki):
+            keep = ki <= qi
+            if window is not None:
+                keep = keep & (qi - ki < window)
+            return keep
+        mask = create_block_mask(mask_mod, None, None, S, S,
+                                 device=q.device)
+        _flex_compiled.clear()
+        torch._dynamo.reset()       # each shape compiles its own
+        _flex_compiled[key] = (torch.compile(flex_attention, dynamic=False),
+                               mask, score_mod)
+    call, mask, score_mod = _flex_compiled[key]
     # the attention kernel at every S (below 128 query rows, flex would
     # pick its decoding kernel, which builds no config at D=256 with GQA)
     return lambda: call(q, k, v, score_mod=score_mod, block_mask=mask,
@@ -990,6 +1020,7 @@ def phase_kernels(out):
                                 c["window"], c["dtype"], c["Dv"], causal))
         log("flash_attention_fwd " + json.dumps(row))
         rows.append(row)
+    _flex_compiled.clear()
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain version: {bad}")
@@ -3673,7 +3704,10 @@ def phase_train_long(out):
         raise AssertionError(f"chunked backward disagrees: {bad}")
 
     # float32: the kernel path against the chunked plain path, a fault
-    # planted in the plain path's chunked attention
+    # planted in the plain path's chunked attention; cut in depth as phase
+    # 19's parity (PARITY_CUTS, since PR 38: one unit, local and global)
+    cut = PARITY_CUTS[GEMMA]
+    cut_step = path_kernels(cfg.replace(**cut))["flash_attention_fwd"]
     fa_before = _fa_variants()
     runs = {}
     for name, impl, fault in (("kernel", "kernel", None),
@@ -3685,7 +3719,7 @@ def phase_train_long(out):
             tr, res = _train_run(GEMMA, "float32", impl, TRAIN_PARITY_OPT,
                                  LONG_TRAIN_STEPS, fault,
                                  data=LONG_TRAIN_DATA,
-                                 ranks=LONG_TRAIN_RANKS)
+                                 ranks=LONG_TRAIN_RANKS, overrides=cut)
         del tr
         runs[name] = {"res": res, "wall_s": res["wall_s"],
                       "chunked_attention_calls": len(calls),
@@ -3706,10 +3740,10 @@ def phase_train_long(out):
     _free()
     log("train_8k_parity " + json.dumps({
         "arch": GEMMA, "dtype": "float32", "optimizer": TRAIN_PARITY_OPT,
-        "steps": LONG_TRAIN_STEPS, "loss_rtol": TRAIN_LOSS_RTOL,
+        "overrides": cut, "steps": LONG_TRAIN_STEPS, "loss_rtol": TRAIN_LOSS_RTOL,
         "param_rtol": TRAIN_PARAM_RTOL, "param_atol": TRAIN_PARAM_ATOL,
         **report}))
-    layer_calls = 2 * per_step * rank_steps   # forward + remat recompute
+    layer_calls = 2 * cut_step * rank_steps   # forward + remat recompute
     checks = {
         "float32 kernel path == chunked plain path":
             not report["plain"]["gate"]["rejected"],
@@ -3717,7 +3751,7 @@ def phase_train_long(out):
             report[TRAIN_FAULTS["chunked"]]["gate"]["rejected"],
         "kernel run's backwards all chunked":
             report["kernel"]["flash_backward_by_path"]
-            == {"dense": 0, "chunked": per_step * rank_steps},
+            == {"dense": 0, "chunked": cut_step * rank_steps},
         f"plain run's chunked_attention calls == {layer_calls}":
             report["plain"]["chunked_attention_calls"] == layer_calls,
     }
@@ -5252,6 +5286,219 @@ def phase_graph(out):
         raise AssertionError(f"graph checks failed: {failed}")
 
 
+# ------------------------------------------------------------ the launchers
+# phase 46: the port's own command lines (repro_torch.launch), in process
+# through main(argv), at gemma3-1b's full width and depth; then the
+# dry-run's cell of the train CLI's own shape held to the card's
+# allocation.  Each CLI's loop (serve.generate, train.train) is wrapped
+# while it runs (``_spy``) to read what it got and gave.
+LAUNCH_SERVE = dict(batch=4, prompt_len=384, max_new=16)
+LAUNCH_TRAIN = dict(steps=3, batch=2, seq=512)
+# the caching allocator rounds each request up to 512 bytes, and leaves a
+# block of its large pool (requests over 1 MiB) unsplit where less than
+# 1 MiB would remain: memory_allocated then counts the whole block
+ALLOC_ROUNDING = 512
+ALLOC_UNSPLIT = 2 ** 20
+
+
+def _card_bytes():
+    """(memory_allocated, the requested bytes behind it), now."""
+    import torch
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+
+def _argv(arch, **kw):
+    return ["--arch", arch] + [x for k, v in kw.items()
+                               for x in (f"--{k.replace('_', '-')}", str(v))]
+
+
+@contextlib.contextmanager
+def _spy(module, name, before=None):
+    """Wrap ``module.name`` while open: each call appends {"args",
+    "kwargs", "result", "before"} to the yielded list, "before" being
+    ``before(args, kwargs)`` (which may replace kwargs) at entry."""
+    orig, calls = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        seen = before(args, kwargs) if before else None
+        result = orig(*args, **kwargs)
+        calls.append({"args": args, "kwargs": kwargs, "result": result,
+                      "before": seen})
+        return result
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_launch(out):
+    """The serve and train CLIs on the card, then the dry-run's bytes of
+    the train CLI's shape against the card's allocation and its FLOPs
+    over the measured step wall."""
+    import math
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import cells, cost, dryrun
+    from repro_torch.launch import serve, train
+    from repro_torch.sharding import MeshShape
+    from repro_torch.tree import tree_leaves
+    cfg = ARCHS[GEMMA].cfg
+    per_forward = path_kernels(cfg)["flash_attention_fwd"]
+    all_ops = _all_ops()
+
+    def counted(run):
+        """``run()`` with every kernel's counts from 0: (its result,
+        launches, plain calls, flash launches by variant, wall s)."""
+        torch.cuda.synchronize()
+        for ops in all_ops.values():
+            ops.reset_counts()             # this CLI run's counts only
+        t0 = time.monotonic()
+        result = run()
+        torch.cuda.synchronize()
+        return (result, {k: o.kernel_launches for k, o in all_ops.items()},
+                {k: o.plain_calls for k, o in all_ops.items()},
+                dict(fa.launches_by_variant), time.monotonic() - t0)
+
+    # the serve CLI: one prefill through the kernel, decode in plain ops
+    argv = _argv(GEMMA, **LAUNCH_SERVE)
+    with _spy(serve, "generate") as calls:
+        rc, launches, plain, by_variant, wall = counted(
+            lambda: serve.main(argv))
+    model, toks = calls[0]["args"][0], calls[0]["result"]
+    leaves = list(model.params.parameters())
+    want = per_forward
+    srow = {"argv": argv, "rc": rc, "wall_s": wall,
+            "kernel_launches": launches, "plain_calls": plain,
+            "flash_launches_by_variant": by_variant,
+            "tokens_shape": list(toks.shape), "tokens_dtype": str(toks.dtype),
+            "params_devices": sorted({str(p.device) for p in leaves})}
+    checks = {
+        "exit code 0": rc == 0,
+        "one generate call": len(calls) == 1,
+        f"flash_attention_fwd launches == {want} (the prefill)":
+            launches["flash_attention_fwd"] == want,
+        "every flash launch mma_bf16": by_variant == {"mma_bf16": want,
+                                                      "simt": 0},
+        "no other kernel, no plain call": not any(
+            n for k, n in launches.items() if k != "flash_attention_fwd")
+            and not any(plain.values()),
+        "parameters on cuda": all(p.is_cuda for p in leaves),
+        "tokens (batch, max_new)": tuple(toks.shape) == (
+            LAUNCH_SERVE["batch"], LAUNCH_SERVE["max_new"]),
+        "tokens inside the vocabulary": bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()),
+    }
+    del model, toks, leaves, calls
+    _free()
+    log("launch_serve " + json.dumps(srow))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve CLI checks failed: {failed}")
+
+    # the train CLI: the kernel in every forward and remat recompute
+    walls = []
+
+    def at_train(args, kwargs):
+        printed = kwargs.get("on_step")
+
+        def on_step(i, loss, dt):
+            walls.append(dt)
+            if printed is not None:
+                printed(i, loss, dt)
+        kwargs["on_step"] = on_step
+        return _card_bytes()                   # parameters and state made
+
+    argv = _argv(GEMMA, **LAUNCH_TRAIN)
+    _free()
+    base = _card_bytes()
+    with _spy(train, "train", before=at_train) as calls:
+        rc, launches, plain, by_variant, wall = counted(
+            lambda: train.main(argv))
+    model, state = calls[0]["args"][0], calls[0]["kwargs"]["state"]
+    losses = calls[0]["result"]
+    n_tensors = len(list(model.params.parameters())) + len(
+        tree_leaves(state))
+    grown, requested = (a - b for a, b in zip(calls[0]["before"], base))
+    want = 2 * per_forward * LAUNCH_TRAIN["steps"]
+    trow = {"argv": argv, "rc": rc, "wall_s": wall, "losses": losses,
+            "step_walls_s": walls, "kernel_launches": launches,
+            "plain_calls": plain, "flash_launches_by_variant": by_variant,
+            "backward_by_path": dict(fa.backward_by_path),
+            "allocated_growth_bytes": grown,
+            "requested_growth_bytes": requested, "tensors": n_tensors}
+    checks = {
+        "exit code 0": rc == 0,
+        f"{LAUNCH_TRAIN['steps']} finite losses":
+            len(losses) == LAUNCH_TRAIN["steps"]
+            and all(math.isfinite(x) for x in losses),
+        f"flash_attention_fwd launches == {want} "
+        f"({2 * per_forward} a step)": launches["flash_attention_fwd"] == want,
+        "every flash launch mma_bf16": by_variant == {"mma_bf16": want,
+                                                      "simt": 0},
+        "no other kernel, no plain call": not any(
+            n for k, n in launches.items() if k != "flash_attention_fwd")
+            and not any(plain.values()),
+        "parameters on cuda": all(p.is_cuda
+                                  for p in model.params.parameters()),
+    }
+    del model, state, calls
+    _free()
+
+    # the dry-run's cell of the same shape, on one device
+    mesh = MeshShape((1, 1), ("data", "model"))
+    shape = ShapeCfg("launch-train", LAUNCH_TRAIN["seq"],
+                     LAUNCH_TRAIN["batch"], "train")
+    t0 = time.monotonic()
+    cell = cells.build_cell(GEMMA, shape, mesh, optimizer="adamw")
+    dry_bytes, dry_tensors = dryrun.argument_bytes(
+        cell.args[:2], cell.in_shardings[:2], mesh)   # parameters, state
+    sizes = [t.numel() * t.element_size()
+             for t in tree_leaves(list(cell.args[:2]))]
+    # memory_allocated's most over the tensors' bytes: 512 B a tensor, and
+    # an unsplit remainder of up to 1 MiB a large one
+    block_slack = sum(ALLOC_ROUNDING + (ALLOC_UNSPLIT if b > ALLOC_UNSPLIT
+                                        else 0) for b in sizes)
+    analysis = cost.analyze(cell.fn, *cell.args)
+    step_s = min(walls[1:] or walls)      # past the first step's warm-up
+    trow.update(
+        dryrun_s=time.monotonic() - t0, dryrun_meta=cell.meta,
+        dryrun_bytes=dry_bytes, dryrun_tensors=dry_tensors,
+        allocated_minus_dryrun=grown - dry_bytes,
+        requested_minus_dryrun=requested - dry_bytes,
+        large_tensors=sum(b > ALLOC_UNSPLIT for b in sizes),
+        block_slack_bytes=block_slack, analysis=analysis,
+        step_s=step_s, card=out.get("card"),
+        achieved_flops_per_s=analysis["flops"] / step_s,
+        flops_note="plain-path FLOPs, masked tiles included, over the "
+                   "fastest measured step wall")
+    checks.update({
+        "dry-run tensors == the card's": dry_tensors == n_tensors,
+        "dry-run bytes == requested-bytes growth within 512 B a tensor":
+            abs(requested - dry_bytes) <= ALLOC_ROUNDING * dry_tensors,
+        "memory_allocated growth within the allocator's block rounding":
+            0 <= grown - dry_bytes <= block_slack,
+    })
+    del cell
+    log("launch_train " + json.dumps(trow))
+    log(f"launch_train achieved {trow['achieved_flops_per_s']:.4e} FLOP/s "
+        f"(plain-path FLOPs, masked tiles included: {analysis['flops']:.4e} "
+        f"over {step_s:.4f} s) on {out.get('card')}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train CLI checks failed: {failed}")
+    out["launch_serve"], out["launch_train"] = srow, trow
+    paths = out.setdefault("main_path_launches", {})
+    variants = out.setdefault("flash_main_path_by_variant", {})
+    for path, row in (("launch-serve", srow), ("launch-train", trow)):
+        paths[path] = {"flash_attention_fwd":
+                       row["kernel_launches"]["flash_attention_fwd"]}
+        variants[path] = row["flash_launches_by_variant"]
+
+
 PHASES = {
     1: ("env", phase_env),
     2: ("build", phase_build),
@@ -5312,6 +5559,7 @@ PHASES = {
          phase_train_ssd),
     44: ("MONC in-situ analytics (paper §VI)", phase_insitu),
     45: ("Graph500 BFS (paper §V)", phase_graph),
+    46: ("launch: the train and serve CLIs and the dry-run", phase_launch),
 }
 
 
@@ -5483,6 +5731,7 @@ def kernels_line(out):
 
 
 def main(argv=None) -> int:
+    started = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, PHASES)),
                     help="comma-separated phase numbers to run")
@@ -5515,8 +5764,13 @@ def main(argv=None) -> int:
             return 1
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out.setdefault("peak_memory_gib", {})[p] = peak
-        log(f"== phase {p} ok ({time.monotonic() - t0:.1f} s, peak "
+        out.setdefault("phase_seconds", {})[p] = time.monotonic() - t0
+        log(f"== phase {p} ok ({out['phase_seconds'][p]:.1f} s, peak "
             f"{peak:.2f} GiB allocated)")
+    out["run_seconds"] = time.monotonic() - started
+    phase_s = sum(out["phase_seconds"].values())
+    log(f"== {len(phases)} phases ok in {phase_s:.1f} s of phases, "
+        f"{out['run_seconds']:.1f} s in all")
     line = kernels_line(out)
     out.update(line)
     if args.json:

@@ -54,6 +54,7 @@ from .common import P, rms_norm, rotary, softcap
 from ..configs.config import ModelCfg
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import chunked_attention, use_chunked
+from ..sharding.ctx import constrain
 
 NEG_INF = -2.0e38
 
@@ -125,6 +126,8 @@ def gqa_apply(p, x, *, cfg: ModelCfg, kind: str, positions,
     if cfg.rope:
         q = rotary(q, positions, theta=theta, fraction=cfg.rope_fraction)
         k = rotary(k, positions, theta=theta, fraction=cfg.rope_fraction)
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
     scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.hd ** -0.5
 
     if cache is None:

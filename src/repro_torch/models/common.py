@@ -72,6 +72,34 @@ def init_tree(specs, generator: torch.Generator, dtype: torch.dtype,
     return tree_map(lambda s: init_param(s, generator, dtype, device), specs)
 
 
+def abstract_tree(specs, dtype: torch.dtype) -> Any:
+    """Meta tensors of a spec tree's shapes and dtypes: nothing is
+    allocated (the dry-run's)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                          device="meta"), specs)
+
+
+def axes_tree(specs) -> Any:
+    """The logical axes of a spec tree's leaves."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+class SpecTrees:
+    """The dry-run's trees of a model with ``param_specs``,
+    ``cache_specs`` and ``dtype``: meta tensors and logical axes, as the
+    reference's ``abstract_params``, ``param_axes`` and
+    ``abstract_cache``."""
+
+    def abstract_params(self):
+        return abstract_tree(self.param_specs(), self.dtype)
+
+    def param_axes(self):
+        return axes_tree(self.param_specs())
+
+    def abstract_cache(self, batch: int, max_len: int):
+        return abstract_tree(self.cache_specs(batch, max_len), self.dtype)
+
+
 # ----------------------------------------------------------------- numerics
 def rms_norm(x, w, *, eps=1e-6, plus_one=False):
     dt = x.dtype
@@ -141,6 +169,15 @@ def sinusoid_positions(length: int, dim: int, device=None) -> torch.Tensor:
     return torch.tensor(_sinusoid_table(length, dim), device=device)
 
 
+def any_filled(positions) -> bool:
+    """Whether any slot of these caches' ``pos`` tensors is filled (>= 0).
+    A meta tensor (the dry-run's abstract cache) holds no values and
+    counts as empty."""
+    pos = [p for p in positions if not p.is_meta]
+    return bool(pos) and bool((torch.stack([p.max() for p in pos])
+                               >= 0).any())
+
+
 def gelu(x):
     return F.gelu(x, approximate="tanh")
 
@@ -155,6 +192,7 @@ def softplus(x):
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-__all__ = ["P", "stack_spec", "init_param", "init_tree",
+__all__ = ["P", "stack_spec", "init_param", "init_tree", "abstract_tree",
+           "axes_tree", "SpecTrees", "any_filled",
            "rms_norm", "layer_norm", "softcap", "rotary",
            "sinusoid_positions", "gelu", "silu", "softplus"]

@@ -40,10 +40,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
-from .common import P, init_tree, sinusoid_positions, stack_spec
+from .common import (P, SpecTrees, any_filled, init_tree, sinusoid_positions,
+                     stack_spec)
 from .lm import (ParamTree, _index, _xent, mlp_apply, mlp_specs, norm_apply,
                  norm_specs)
 from ..configs.config import ModelCfg
+from ..sharding.ctx import constrain
 from ..tree import tree_map
 
 
@@ -92,7 +94,7 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
                                                                           S)
 
 
-class EncDecLM(nn.Module):
+class EncDecLM(SpecTrees, nn.Module):
     """Whisper-shaped encoder-decoder transformer; ``n_layers`` per
     stack."""
 
@@ -175,7 +177,8 @@ class EncDecLM(nn.Module):
                                 positions=positions, cache=None)
         x = x + mix
         h = norm_apply(lp["ln2"], x, cfg)
-        return x + mlp_apply(lp["mlp"], h, cfg)
+        return constrain(x + mlp_apply(lp["mlp"], h, cfg),
+                         ("batch", "seq", "embed"))
 
     def encode(self, frame_embeds):
         """frame_embeds: (B, S, d) stub frontend output -> (B, S, d)."""
@@ -206,7 +209,8 @@ class EncDecLM(nn.Module):
         h = norm_apply(lp["lnx"], x, cfg)
         x = x + cross_attn_apply(lp["cross"], h, kv, cfg=cfg)
         h = norm_apply(lp["ln2"], x, cfg)
-        return x + mlp_apply(lp["mlp"], h, cfg)
+        return constrain(x + mlp_apply(lp["mlp"], h, cfg),
+                         ("batch", "seq", "embed"))
 
     def cross_kv(self, enc_out):
         """Every decoder layer's cross-attention (k, v), stacked: (n, B,
@@ -233,7 +237,7 @@ class EncDecLM(nn.Module):
                  if remat else self._dec_body(*args))
         x = norm_apply(self.params["dec_norm"], x, cfg)
         lg = torch.einsum("bsd,vd->bsv", x, self.params["embed"])
-        return lg, caches, cross_kv
+        return constrain(lg, ("batch", "seq", "vocab")), caches, cross_kv
 
     # -- public API (mirrors TransformerLM) ----------------------------------
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -268,7 +272,7 @@ class EncDecLM(nn.Module):
         ValueError.  Returns (last_logits, (caches, cross_kv))."""
         if frame_embeds is None:
             raise ValueError("an encoder-decoder prefill needs frame_embeds")
-        if bool((caches["pos"] >= 0).any()):
+        if any_filled([caches["pos"]]):
             raise ValueError("prefill needs an empty cache (init_cache)")
         B, S = tokens.shape
         if S > caches["pos"].shape[-1]:

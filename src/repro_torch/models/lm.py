@@ -43,9 +43,10 @@ from . import attention as attn
 from . import mamba2 as m2
 from . import moe
 from . import rglru as rg
-from .common import (P, gelu, init_tree, layer_norm, rms_norm, silu, softcap,
-                     stack_spec)
+from .common import (P, SpecTrees, any_filled, gelu, init_tree, layer_norm,
+                     rms_norm, silu, softcap, stack_spec)
 from ..configs.config import ModelCfg
+from ..sharding.ctx import constrain
 from ..tree import tree_map
 
 Desc = Tuple[str, str]  # (mixer kind, mlp kind)
@@ -109,11 +110,12 @@ def mlp_specs(cfg: ModelCfg) -> Dict[str, P]:
 def mlp_apply(p, x, cfg: ModelCfg):
     if cfg.mlp in ("gated_silu", "gated_gelu"):
         act = silu if cfg.mlp == "gated_silu" else gelu
-        return (act(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        h = act(x @ p["wg"]) * (x @ p["wu"])
+        return constrain(h, ("batch", "seq", "mlp")) @ p["wd"]
     h = x @ p["w1"]
     if cfg.bias:
         h = h + p["b1"]
-    h = gelu(h) @ p["w2"]
+    h = constrain(gelu(h), ("batch", "seq", "mlp")) @ p["w2"]
     if cfg.bias:
         h = h + p["b2"]
     return h
@@ -183,7 +185,7 @@ def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
                                  fresh_cache=fresh_cache)
     if cfg.post_norms:
         mix = norm_apply(lp["ln1p"], mix, cfg)
-    x = x + mix
+    x = constrain(x + mix, ("batch", "residual_seq", "embed"))
     aux = None
     if mlp_kind == "none":
         return x, new_cache, aux
@@ -194,7 +196,8 @@ def layer_apply(lp, x, *, cfg: ModelCfg, desc: Desc, positions, cache,
         out = mlp_apply(lp["mlp"], h, _ff_cfg(cfg, mlp_kind))
     if cfg.post_norms:
         out = norm_apply(lp["ln2p"], out, cfg)
-    return x + out, new_cache, aux
+    return (constrain(x + out, ("batch", "residual_seq", "embed")),
+            new_cache, aux)
 
 
 def _unit_apply(x, aux, layers, cfg: ModelCfg, positions, fresh_cache):
@@ -290,7 +293,7 @@ def _index(tree, i: int):
 
 
 # ---------------------------------------------------------------- the model
-class TransformerLM(nn.Module):
+class TransformerLM(SpecTrees, nn.Module):
     """Decoder-only LM (the dense attention families, Mamba-2,
     RecurrentGemma, Granite-MoE and DeepSeek-V3)."""
 
@@ -434,7 +437,8 @@ class TransformerLM(nn.Module):
             lg = torch.einsum("bsd,vd->bsv", hidden, self.params["embed"])
         else:
             lg = torch.einsum("bsd,dv->bsv", hidden, self.params["lm_head"])
-        return softcap(lg, self.cfg.final_softcap)
+        return constrain(softcap(lg, self.cfg.final_softcap),
+                         ("batch", "seq", "vocab"))
 
     def _positions(self, tokens):
         B, S = tokens.shape[:2]
@@ -509,8 +513,7 @@ class TransformerLM(nn.Module):
         An SSD or RG-LRU cache needs no check: its scan continues from
         whatever state the cache holds, as the reference's does."""
         attn = [u for seg in caches for u in seg if "pos" in u]
-        if attn and bool((torch.stack([u["pos"].max() for u in attn])
-                          >= 0).any()):
+        if any_filled(u["pos"] for u in attn):
             raise ValueError("prefill needs empty caches (init_cache)")
         # every attention cache (GQA K/V, MLA latent) has pos (..., B, L)
         x = self.embed(tokens)

@@ -35,6 +35,7 @@ from .common import P, rms_norm, silu, softplus
 from ..configs.config import ModelCfg
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import ssd_padded_reference
+from ..sharding.ctx import constrain
 
 
 def _dims(cfg: ModelCfg):
@@ -118,6 +119,7 @@ def mamba2_apply(p, x, *, cfg: ModelCfg,
     if cache is None:
         xbc, _ = _conv1d(xbc, p["conv_w"], p["conv_b"], None)
         xs, b, c = _heads(cfg, xbc)
+        xs = constrain(xs, ("batch", "seq", "ssm_heads", None))
         y, _ = _scan(cfg, xs, dt, p["a_log"], b, c)
     elif T == 1:
         # single-token decode: O(1) state update (the SSM selling point)

@@ -38,6 +38,7 @@ import torch
 
 from .common import P, silu
 from ..configs.config import ModelCfg
+from ..sharding.ctx import constrain
 
 
 def moe_specs(cfg: ModelCfg) -> Dict[str, P]:
@@ -140,13 +141,15 @@ def dispatch(xf, gidx, weights, C: int,
     token_slots = torch.empty_like(slot).scatter(0, order, slot)
     token_slots = torch.sort(token_slots.reshape(T, k), dim=1).values
     xg = torch.cat([xf, xf.new_zeros((1, d))])[table]
-    return xg.reshape(E, C, d), Dispatch(table, wtab, keep, token_slots)
+    xg = constrain(xg.reshape(E, C, d), ("expert", "capacity", "embed"))
+    return xg, Dispatch(table, wtab, keep, token_slots)
 
 
 def experts(p, xg):
     """The expert MLPs on their slots: (E, C, d) -> (E, C, d)."""
     h = silu(torch.bmm(xg, p["wg"])) * torch.bmm(xg, p["wu"])
-    return torch.bmm(h, p["wd"])
+    h = constrain(h, ("expert", "capacity", "moe_mlp"))
+    return constrain(torch.bmm(h, p["wd"]), ("expert", "capacity", "embed"))
 
 
 def combine(ye, disp: Dispatch):

@@ -10,8 +10,10 @@ float32, decay only where ``p.ndim >= 2``, int8 moments rounded half to even
 (``torch.round``, as ``jnp.round``), new parameters cast back to their dtype.
 
 ``update`` returns new tensors and leaves its inputs untouched, as the
-reference's functional update does.  The reference's ``abstract_state`` and
-``state_axes`` serve its dry-run and mesh (ROADMAP M16) and are not ported.
+reference's functional update does.  ``abstract_state`` is ``init`` on the
+parameters' meta copies (nothing is allocated), ``state_axes`` the state's
+logical axes from the parameters', under the reference's paths: both serve
+the dry-run (``launch/cells.py``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,21 @@ class OptCfg:
 class Optimizer:
     cfg: OptCfg
     init: Callable[[Any], Any]
+    abstract_state: Callable[[Any], Any]
+    state_axes: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], Tuple[Any, Any, Any]]
+
+
+def _abstract(init):
+    """``init`` on meta copies of the parameters: the state's tree, shapes
+    and dtypes, allocating nothing."""
+    return lambda aparams: init(tree_map(lambda p: p.to("meta"), aparams))
+
+
+def _state_axes(leaf):
+    """{"mu": ``leaf`` of each parameter's axes, "count": ()}."""
+    return lambda param_axes: {"mu": tree_map(leaf, param_axes),
+                               "count": ()}
 
 
 def _lr(cfg: OptCfg, step):
@@ -148,7 +164,14 @@ def _adamw(cfg: OptCfg, quantised: bool) -> Optimizer:
         metrics = {"grad_norm": gnorm, "lr": lr}
         return new_params, {"mu": new_mu, "count": cnt}, metrics
 
-    return Optimizer(cfg, init, update)
+    def axes(ax):
+        st = ({"m": ax, "m_s": (), "v": ax, "v_s": ()} if quantised
+              else {"m": ax, "v": ax})
+        if cfg.master_fp32:
+            st["master"] = ax
+        return st
+
+    return Optimizer(cfg, init, _abstract(init), _state_axes(axes), update)
 
 
 # ---------------------------------------------------------------- adafactor
@@ -195,7 +218,12 @@ def _adafactor(cfg: OptCfg) -> Optimizer:
         return new_params, {"mu": new_mu, "count": cnt}, \
             {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer(cfg, init, update)
+    def axes(ax):
+        if len(ax) < 2:
+            return {"v": ax}
+        return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+
+    return Optimizer(cfg, init, _abstract(init), _state_axes(axes), update)
 
 
 # -------------------------------------------------------------------- sgdm
@@ -219,4 +247,5 @@ def _sgdm(cfg: OptCfg) -> Optimizer:
         return new_params, {"mu": new_mu, "count": cnt}, \
             {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer(cfg, init, update)
+    return Optimizer(cfg, init, _abstract(init),
+                     _state_axes(lambda ax: {"m": ax}), update)

@@ -4,8 +4,10 @@ serve_step.
 The counterpart of ``repro.train.step``.  The port's model reads its own
 parameters (``model.params``), so :func:`value_and_grad` installs the tree
 it is given in a model object of its own and takes gradients with
-``torch.autograd.grad`` over its leaves.  The reference's ``constrain`` is
-the identity on one device and is dropped.  Remat follows the config's
+``torch.autograd.grad`` over its leaves.  The model calls ``constrain``
+where the reference does (``repro_torch.sharding``): it returns its input
+itself on one device and on meta tensors, and redistributes a ``DTensor``
+under an active ``DeviceMesh``.  Remat follows the config's
 ``remat`` inside the model's forward (``models/lm.py``), as the reference's
 does.
 """
@@ -27,13 +29,16 @@ def value_and_grad(model, params, batch
     (``model`` lends only its config), so a caller that installs other
     parameters in ``model`` meanwhile does not reach this call.
     ``grads`` has the tree's structure and each leaf's dtype, and nothing
-    keeps the graph alive."""
+    keeps the graph alive.  A leaf the loss does not reach (DeepSeek-V3's
+    ``router_bias``, which only selects experts) gets zeros, as JAX gives
+    it."""
     m = type(model)(model.cfg).set_params(params)
     tree = m.params.to_dict()
     leaves = []
     tree_map(leaves.append, tree)
     loss, metrics = m.loss(batch)
-    grads = iter(torch.autograd.grad(loss, leaves))
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                     materialize_grads=True))
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             tree_map(lambda _: next(grads), tree))
 

@@ -57,7 +57,12 @@ for name in ("repro_torch.models.mamba2", "repro_torch.models.moe",
              "repro_torch.graph.kronecker",
              "repro_torch.kernels.kronecker.ops",
              "repro_torch.kernels.kronecker.ref",
-             "repro_torch.durable.demo"):
+             "repro_torch.durable.demo", "repro_torch.sharding",
+             "repro_torch.sharding.rules", "repro_torch.sharding.ctx",
+             "repro_torch.launch", "repro_torch.launch.mesh",
+             "repro_torch.launch.cells", "repro_torch.launch.cost",
+             "repro_torch.launch.dryrun", "repro_torch.launch.serve",
+             "repro_torch.launch.train"):
     assert name in names, name
 """
 
@@ -69,8 +74,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     # configs, runtime, net, models, kernels, serve, data, optim,
-    # checkpoint, train, runtime_dist, analytics, insights, graph
-    assert n_modules >= 63
+    # checkpoint, train, runtime_dist, analytics, insights, graph,
+    # sharding, launch
+    assert n_modules >= 73
 
 
 CFG = reduce_cfg(ARCHS["gemma3-1b"].cfg)
